@@ -54,7 +54,7 @@ _jax_reference = jax.jit(
 
 def _both(args, jcam=JCAM, **kw):
     """Render the same numpy inputs with both packages (sh may be None)."""
-    m, c, co, o, s = gaussians_to_tensors(*args)
+    m, c, co, o, s = gaussians_to_tensors(*args, device="cpu")
     cam = camera_from_fields(**dataclasses.asdict(jcam))
     mine = T.render(m, c, co, o, cam, sh=s, **kw)
     ref = _jax_render(*args, jcam, tuple(sorted(kw.items())))
@@ -96,7 +96,7 @@ def test_render_matches_jax_display_modes(scene30, mode):
 def test_render_reference_matches_jax(scene30, mode, window):
     """The brute-force spec renderer, which chip_smoke.py holds the slice
     to on the card, against the JAX package's; ``pixel_window`` crops."""
-    args = gaussians_to_tensors(*scene30)
+    args = gaussians_to_tensors(*scene30, device="cpu")
     kw = dict(sh_deg=3, background=BG, display_mode=mode,
               pixel_window=window)
     mine = T.render_reference(*args[:4], CAM, sh=args[4], **kw)
@@ -166,11 +166,15 @@ def test_render_gaussians_model_ply_matches_jax(model_soa, cov3d):
     _assert_same(mine, ref, IMAGE_ATOL)
 
 
-def test_render_refuses_inputs_that_require_grad(scene30):
-    means, cov6, color, opac, sh = gaussians_to_tensors(*scene30)
+def test_render_tracks_grad_only_when_asked(scene30):
+    """Inputs that require grad give an image with a grad_fn, through the
+    binned rasterization's autograd Function; under no_grad, none."""
+    means, cov6, color, opac, sh = gaussians_to_tensors(*scene30,
+                                                        device="cpu")
     opac.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        T.render(means, cov6, color, opac, CAM)
+    res = T.render(means, cov6, color, opac, CAM)
+    assert res.image.grad_fn is not None
+    assert not res.overflow.requires_grad
     with torch.no_grad():
         res = T.render(means, cov6, color, opac, CAM)
-    assert not res.image.requires_grad
+    assert res.image.grad_fn is None and not res.image.requires_grad

@@ -1,12 +1,17 @@
-"""wgpu_3dgs_core_tpu_torch: the forward renderer of wgpu_3dgs_core_tpu in
-PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""wgpu_3dgs_core_tpu_torch: the differentiable renderer and training loop
+of wgpu_3dgs_core_tpu in PyTorch, with hand-written CUDA kernels for NVIDIA
+Hopper (sm_90a).
 
 The JAX package ``wgpu_3dgs_core_tpu`` is the reference this port is held
 against; this package imports ``torch`` and never ``jax``. Module names
-mirror the JAX package's. The hot path runs three kernels built from
+mirror the JAX package's. The hot path runs six kernels built from
 ``csrc/`` on first use (ops/cuda.py): K1 and K2, the two levels of
-fragment expansion (ops/expand.py), and K3, the forward tile rasterizer
-(ops/rasterize.py). On CPU tensors each runs its plain torch version.
+fragment expansion (ops/expand.py); K3 and K4, the forward tile rasterizer
+and its backward (ops/rasterize.py); K5 and K6, the backward's segment
+sums per gaussian and their scatter back to gaussian order
+(ops/segreduce.py). On CPU tensors each runs its plain torch version.
+Entry points run on the card unless they are given CPU tensors or
+``device="cpu"``.
 """
 
 from .buffer import (  # noqa: F401
@@ -30,6 +35,10 @@ from .ops import launch_counts, reset_launch_counts  # noqa: F401
 from .render import (  # noqa: F401
     Camera,
     RenderResult,
+    TrainableGaussians,
+    fit,
+    l2_image_loss,
+    make_train_step,
     measure_max_fragments,
     measure_max_rows,
     render,

@@ -2,7 +2,7 @@
 
 The counterpart of ``wgpu_3dgs_core_tpu.buffer``. A :class:`GaussiansBuffer`
 holds one torch tensor per packed field, all on one device named when the
-buffer is made. :class:`GaussianTransform` keeps the reference's u32 flag
+buffer is made (the card unless the caller names another). :class:`GaussianTransform` keeps the reference's u32 flag
 packing bit for bit; :class:`ModelTransform` hands out its TRS as tensors.
 """
 
@@ -40,14 +40,14 @@ class GaussiansBuffer:
 
     @classmethod
     def new(cls, gaussians, layout: GaussianLayout = GaussianLayout(),
-            device="cpu") -> "GaussiansBuffer":
+            device="cuda") -> "GaussiansBuffer":
         """Pack a :class:`GaussianSoA` on the host, upload to ``device``
         (reference: gaussian.rs:21-30, 61-65)."""
         return cls.new_with_packed(pack(gaussians, layout), device)
 
     @classmethod
     def new_with_packed(cls, packed: PackedGaussians,
-                        device="cpu") -> "GaussiansBuffer":
+                        device="cuda") -> "GaussiansBuffer":
         return cls(
             PackedGaussians(
                 layout=packed.layout,
@@ -62,7 +62,7 @@ class GaussiansBuffer:
 
     @classmethod
     def from_arrays(cls, layout: GaussianLayout, pos, color, sh, cov3d,
-                    device="cpu") -> "GaussiansBuffer":
+                    device="cuda") -> "GaussiansBuffer":
         """Adopt existing arrays, validating shapes against the layout
         (reference: gaussian.rs:213-229)."""
         n = pos.shape[0]

@@ -1,12 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled on first use by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded
-through ``ctypes``. The library lands in ``_build/<key>/`` inside the
-package, keyed by a hash of the sources and the compiler flags, so a
-checkout builds once and rebuilds only when a source changes. Nothing
-here runs at import: importing the package needs neither ``nvcc`` nor a
-card.
+``sm_90a``, one ``nvcc`` per source, all started together, and linked into
+one shared library with a plain C interface, loaded through ``ctypes``.
+The library lands in ``_build/<key>/`` inside the package, keyed by a hash
+of the sources and the compiler flags, so a checkout builds once and
+rebuilds only when a source changes. Nothing here runs at import:
+importing the package needs neither ``nvcc`` nor a card.
 
 Each kernel entry point is a :class:`CudaKernel`. It counts its own
 launches, so a run can show that it went through the kernel, and raises
@@ -29,11 +29,11 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("expand.cu", "rasterize.cu")
+SOURCES = ("expand.cu", "rasterize.cu", "segreduce.cu")
 HEADERS = ("common.cuh",)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libgs_kernels.so"
 
@@ -81,15 +81,33 @@ def build() -> BuildInfo:
         log = log_path.read_text() if log_path.is_file() else ""
         return BuildInfo(lib, 0.0, log)
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in SOURCES)]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                          str(CSRC_DIR / src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)],
+                          capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(
+            f"nvcc link failed ({proc.returncode}):\n{proc.stdout}"
+            f"{proc.stderr}")
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return BuildInfo(lib, seconds, log)

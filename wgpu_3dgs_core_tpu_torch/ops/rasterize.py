@@ -1,11 +1,14 @@
-"""Forward tile rasterizer: kernel K3 and its plain version.
+"""Tile rasterizer: kernels K3 (forward) and K4 (backward), with their
+plain versions.
 
-The counterpart of ``wgpu_3dgs_core_tpu.ops.rasterize`` for the forward
-path. :func:`rasterize_tiles_fwd` (replaces ``_fwd_kernel``) blends each
-16x16 tile front to back over its depth-ordered range of the tile-sorted
-stream and composites the background: on CUDA tensors through
-``csrc/rasterize.cu``, on CPU tensors through
-:func:`rasterize_tiles_fwd_plain`.
+The counterpart of ``wgpu_3dgs_core_tpu.ops.rasterize``.
+:func:`rasterize_tiles_fwd` (replaces ``_fwd_kernel``) blends each 16x16
+tile front to back over its depth-ordered range of the tile-sorted stream
+and composites the background; :func:`rasterize_tiles_bwd` (replaces
+``_bwd_kernel``) turns the cotangent of that output into per-fragment
+gradients. On CUDA tensors both launch ``csrc/rasterize.cu``; on CPU
+tensors they run :func:`rasterize_tiles_fwd_plain` and
+:func:`rasterize_tiles_bwd_plain`.
 
 Stream layout: f32 [9, F] rows x, y (TILE-LOCAL: shifted by the owning
 tile's pixel origin, as the JAX renderer does before its kernel, so dx/dy
@@ -69,6 +72,48 @@ def _frag_alpha(f, px, py, cutoff_sq, mode):
     return alpha, ok & (alpha >= ALPHA_MIN)
 
 
+def _tile_batches(tile_start, tile_len, tiles):
+    """The plain versions' batches over ``tiles`` (int64 tile ids): yields
+    (positions in ``tiles`` [B], valid [B, L], stream index [B, L]). Tiles
+    go in order of length, so each batch pads to at most twice its
+    shortest tile, and a batch's padded (tile, fragment, pixel) block
+    stays within PLAIN_BATCH_ELEMS. Padding indexes slot 0."""
+    dev = tile_start.device
+    lens = tile_len[tiles].long()
+    order = torch.sort(lens, stable=True).indices
+    lens_host = lens[order].tolist()
+    starts = tile_start[tiles[order]].long()
+    lens = lens[order]
+    i = 0
+    while i < len(lens_host):
+        j, l_max = i + 1, max(lens_host[i], 1)
+        while j < len(lens_host):
+            nxt = max(l_max, lens_host[j])
+            if (nxt > 2 * max(lens_host[i], 1)
+                    or (j + 1 - i) * nxt * PIX > PLAIN_BATCH_ELEMS):
+                break
+            j, l_max = j + 1, nxt
+        k = torch.arange(l_max, device=dev)
+        valid = k[None, :] < lens[i:j, None]  # [B, L]
+        idx = torch.where(valid, starts[i:j, None] + k[None, :], 0)
+        yield order[i:j], valid, idx
+        i = j
+
+
+def _blend_batch(f, valid, bgv, cutoff_sq, mode):
+    """Plain K3 on one batch of tiles: ``f`` [9, B, L] fragments, ``valid``
+    [B, L]. Returns [B, 4, P] (RGB + T_final * bg, then T_final)."""
+    p = torch.arange(PIX, device=f.device)
+    px = (p % TILE_SIZE).float() + 0.5
+    py = torch.div(p, TILE_SIZE, rounding_mode="floor").float() + 0.5
+    f = f[..., None]  # [9, B, L, 1]
+    alpha, ok = _frag_alpha(f, px, py, cutoff_sq, mode)
+    alpha = torch.where(ok & valid[..., None], alpha, 0.0)  # [B, L, P]
+    w, t_final = blend_weights(alpha, dim=1)
+    rgb = (w[:, None] * f[5:8].movedim(0, 1)).sum(dim=2)  # [B, 3, P]
+    return torch.cat([rgb + t_final[:, None] * bgv, t_final[:, None]], dim=1)
+
+
 def rasterize_tiles_fwd_plain(frags, tile_start, tile_len, bg,
                               cutoff_sq: float = Q_CUTOFF, mode: int = 0,
                               tiles=None) -> torch.Tensor:
@@ -79,35 +124,11 @@ def rasterize_tiles_fwd_plain(frags, tile_start, tile_len, bg,
     n_t = tile_start.shape[0]
     tiles = (torch.arange(n_t, device=dev) if tiles is None
              else torch.as_tensor(tiles, dtype=torch.int64, device=dev))
-    p = torch.arange(PIX, device=dev)
-    px = (p % TILE_SIZE).float() + 0.5
-    py = torch.div(p, TILE_SIZE, rounding_mode="floor").float() + 0.5
     bgv = torch.tensor(bg, dtype=torch.float32, device=dev)[:, None]
-    starts = tile_start[tiles].long()
-    lens = tile_len[tiles].long()
     out = torch.empty((tiles.shape[0], 4, PIX), dtype=torch.float32,
                       device=dev)
-    lens_host = lens.tolist()
-    i = 0
-    while i < len(lens_host):
-        # Grow the batch while the padded (tile, fragment, pixel) block fits.
-        j, l_max = i + 1, max(lens_host[i], 1)
-        while j < len(lens_host):
-            nxt = max(l_max, lens_host[j])
-            if (j + 1 - i) * nxt * PIX > PLAIN_BATCH_ELEMS:
-                break
-            j, l_max = j + 1, nxt
-        k = torch.arange(l_max, device=dev)
-        valid = k[None, :] < lens[i:j, None]  # [B, L]
-        idx = torch.where(valid, starts[i:j, None] + k[None, :], 0)
-        f = frags[:, idx][..., None]  # [9, B, L, 1]
-        alpha, ok = _frag_alpha(f, px, py, cutoff_sq, mode)
-        alpha = torch.where(ok & valid[..., None], alpha, 0.0)  # [B, L, P]
-        w, t_final = blend_weights(alpha, dim=1)
-        rgb = (w[:, None] * f[5:8].movedim(0, 1)).sum(dim=2)  # [B, 3, P]
-        out[i:j, 0:3] = rgb + t_final[:, None] * bgv
-        out[i:j, 3] = t_final
-        i = j
+    for b, valid, idx in _tile_batches(tile_start, tile_len, tiles):
+        out[b] = _blend_batch(frags[:, idx], valid, bgv, cutoff_sq, mode)
     return out
 
 
@@ -138,6 +159,69 @@ def rasterize_tiles_fwd(frags, tile_start, tile_len, bg,
         float(cutoff_sq), int(mode), out.data_ptr(), work=n_t, device=dev,
     )
     return out
+
+
+def rasterize_tiles_bwd_plain(frags, tile_start, tile_len, draw_len, out,
+                              g_out, bg, cutoff_sq: float = Q_CUTOFF,
+                              mode: int = 0) -> torch.Tensor:
+    """Plain version of K4: ``torch.autograd.grad`` of the plain K3
+    (:func:`rasterize_tiles_fwd_plain`'s batches, drawing ``draw_len``
+    fragments of each tile) with respect to the fragments, against the
+    cotangent ``g_out``. ``tile_len`` and K3's ``out`` are the kernel's
+    arguments; autograd recomputes what it needs. Slots not drawn get
+    zeros."""
+    del tile_len, out  # the kernel's zero fill and pixel inputs
+    dev = frags.device
+    tiles = torch.arange(tile_start.shape[0], device=dev)
+    bgv = torch.tensor(bg, dtype=torch.float32, device=dev)[:, None]
+    dfrag = torch.zeros_like(frags)
+    with torch.enable_grad():
+        for b, valid, idx in _tile_batches(tile_start, draw_len, tiles):
+            f = frags[:, idx].detach().requires_grad_(True)
+            blk = _blend_batch(f, valid, bgv, cutoff_sq, mode)
+            (d_f,) = torch.autograd.grad(blk, f, g_out[b])
+            dfrag[:, idx[valid]] = d_f[:, valid]
+    return dfrag
+
+
+RASTERIZE_BWD = CudaKernel(
+    "rasterize_bwd", "gs_rasterize_bwd",
+    [P, I, P, P, P, I, P, P, F, F, F, F, I, P],
+)
+
+
+def rasterize_tiles_bwd(frags, tile_start, tile_len, draw_len, out, g_out,
+                        bg, cutoff_sq: float = Q_CUTOFF,
+                        mode: int = 0) -> torch.Tensor:
+    """K4: per-fragment gradients [9, F] of the stream ``frags`` from K3's
+    output ``out`` [T, 4, 256] and its cotangent ``g_out``.
+
+    Tile t drew ``draw_len[t]`` of its ``tile_len[t]`` fragments at
+    ``tile_start[t]`` (the tiles cover the stream's live prefix in order).
+    Rows follow the stream's (x, y, conic a/b/c, r, g, b, opacity); every
+    slot is written, and slots not drawn, drawn after their tile
+    saturated, or past the live prefix are exact zeros.
+    """
+    n_t = tile_start.shape[0]
+    check(frags, "frags", torch.float32, (FRAG_ROWS, None))
+    for name, t in (("tile_start", tile_start), ("tile_len", tile_len),
+                    ("draw_len", draw_len)):
+        check(t, name, torch.int32, (n_t,))
+    check(out, "out", torch.float32, (n_t, 4, PIX))
+    check(g_out, "g_out", torch.float32, (n_t, 4, PIX))
+    if on_cpu(frags, tile_start, tile_len, draw_len, out, g_out):
+        return rasterize_tiles_bwd_plain(frags, tile_start, tile_len,
+                                         draw_len, out, g_out, bg, cutoff_sq,
+                                         mode)
+    dev = frags.device
+    dfrag = torch.empty_like(frags)
+    RASTERIZE_BWD.launch(
+        frags.data_ptr(), frags.shape[1], tile_start.data_ptr(),
+        tile_len.data_ptr(), draw_len.data_ptr(), n_t, out.data_ptr(),
+        g_out.data_ptr(), float(bg[0]), float(bg[1]), float(bg[2]),
+        float(cutoff_sq), int(mode), dfrag.data_ptr(), work=n_t, device=dev,
+    )
+    return dfrag
 
 
 def tiles_to_image(tiles: torch.Tensor, tiles_x: int, tiles_y: int,

@@ -114,7 +114,7 @@ def unpack_cov3d(cov3d: torch.Tensor, rot_scale: bool) -> torch.Tensor:
 
 
 def unpack_sh(sh: torch.Tensor | None, n: int,
-              device="cpu") -> torch.Tensor:
+              device="cuda") -> torch.Tensor:
     """Packed SH -> f32 [..., 15, 3]: f32 passthrough, f16 cast, int8
     snorm (v/127 floored at -1), None -> zeros on ``device``
     (reference: src/shader/gaussian.wesl:29-77)."""

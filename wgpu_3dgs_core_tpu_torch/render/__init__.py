@@ -9,6 +9,7 @@ from .renderer import (
     render,
     render_gaussians,
 )
+from .train import TrainableGaussians, fit, l2_image_loss, make_train_step
 
 __all__ = [
     "Camera",
@@ -20,4 +21,8 @@ __all__ = [
     "rasterize_splats",
     "render",
     "render_gaussians",
+    "TrainableGaussians",
+    "fit",
+    "l2_image_loss",
+    "make_train_step",
 ]

@@ -39,7 +39,7 @@ class Camera:
     def cy(self) -> float:
         return self.height / 2.0
 
-    def view_matrix(self, device="cpu") -> torch.Tensor:
+    def view_matrix(self, device="cuda") -> torch.Tensor:
         return torch.tensor(
             np.asarray(self.view, np.float32).reshape(4, 4), device=device
         )

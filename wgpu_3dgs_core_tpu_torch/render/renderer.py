@@ -1,11 +1,15 @@
-"""The forward renderer: projection -> binning -> tiles -> image.
+"""The differentiable renderer: projection -> binning -> tiles -> image.
 
-The counterpart of ``wgpu_3dgs_core_tpu.render.renderer``, forward only.
-:func:`render` is the tensor-in/image-out function; :func:`render_gaussians`
-takes a :class:`GaussiansBuffer` (or packed layout) plus the reference's
-GaussianTransform/ModelTransform knobs. The hot path runs the kernels
-K1 and K2 (ops/expand.py) and K3 (ops/rasterize.py); everything between
-them is plain torch on the inputs' device.
+The counterpart of ``wgpu_3dgs_core_tpu.render.renderer``. :func:`render`
+is the tensor-in/image-out function; :func:`render_gaussians` takes a
+:class:`GaussiansBuffer` (or packed layout) plus the reference's
+GaussianTransform/ModelTransform knobs. The forward runs the kernels K1
+and K2 (ops/expand.py) and K3 (ops/rasterize.py); the backward of the
+binned rasterization (:class:`BinRasterize`, the counterpart of the JAX
+``custom_vjp``) runs K4 (ops/rasterize.py), a key sort, K5 and K6
+(ops/segreduce.py), and autograd carries the result through the plain
+torch projection, SH and parameterization. Everything between the kernels
+is plain torch on the inputs' device.
 """
 
 from __future__ import annotations
@@ -36,7 +40,17 @@ from ..ops.binning import (
     tile_bounds,
 )
 from ..ops.projection import project
-from ..ops.rasterize import rasterize_tiles_fwd, tiles_to_image
+from ..ops.rasterize import (
+    rasterize_tiles_bwd,
+    rasterize_tiles_fwd,
+    tiles_to_image,
+)
+from ..ops.segreduce import (
+    gid_column_sorted,
+    segment_sums_sorted,
+    sort_keys,
+    uncompact_columns,
+)
 from ..ops.sh import gaussian_color
 from ..ops.transforms import (
     device_constant,
@@ -56,17 +70,6 @@ class RenderResult(NamedTuple):
     image: torch.Tensor  # [H, W, 3] f32
     transmittance: torch.Tensor  # [H, W] f32 final T per pixel
     overflow: torch.Tensor  # 0-d bool: a capacity was exceeded
-
-
-def _check_forward_only(*tensors) -> None:
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors
-    ):
-        raise NotImplementedError(
-            "wgpu_3dgs_core_tpu_torch renders forward only: the backward "
-            "kernels land in a later release. Render under torch.no_grad() "
-            "or with inputs that do not require grad."
-        )
 
 
 def project_and_color(
@@ -101,14 +104,16 @@ def project_and_color(
     return splats, rgb, opacity
 
 
+@torch.no_grad()
 def measure_max_fragments(
     means, cov3d_sigma6, opacity, camera: Camera,
     model_transform: Optional[tuple] = None, size: float = 1.0,
     max_std_dev: float = 3.0, antialiased: bool = False,
+    headroom: float = CAPACITY_HEADROOM,
 ) -> int:
     """Measured ``max_fragments`` for a scene and camera: one N-scale dry
-    pass counting the trimmed stream exactly, times CAPACITY_HEADROOM,
-    rounded up to 256 (at least 1024). Syncs with the device."""
+    pass counting the trimmed stream exactly, times ``headroom``, rounded
+    up to 256 (at least 1024). Syncs with the device."""
     tiles_x, tiles_y = num_tiles(camera.width, camera.height)
     splats = project(
         means, cov3d_sigma6, camera, model_transform,
@@ -124,14 +129,16 @@ def measure_max_fragments(
                               max_span_y=max_sy,
                               cutoff_sq=float(max_std_dev) ** 2)
     )
-    cap = max(int(total * CAPACITY_HEADROOM), 1024)
+    cap = max(int(total * headroom), 1024)
     return -(-cap // 256) * 256
 
 
+@torch.no_grad()
 def measure_max_rows(
     means, cov3d_sigma6, opacity, camera: Camera,
     model_transform: Optional[tuple] = None, size: float = 1.0,
     max_std_dev: float = 3.0, antialiased: bool = False,
+    headroom: float = CAPACITY_HEADROOM,
 ) -> int:
     """Measured ``max_rows`` (the K1 row-stream capacity), the companion
     of :func:`measure_max_fragments`, rounded up to 512."""
@@ -147,7 +154,7 @@ def measure_max_rows(
                    splats.mask, tiles_x, tiles_y,
                    cutoff_sq=float(max_std_dev) ** 2)
     )
-    cap = max(int(total * CAPACITY_HEADROOM), 1024)
+    cap = max(int(total * headroom), 1024)
     return -(-cap // 512) * 512
 
 
@@ -162,6 +169,63 @@ def tile_local_stream(attrs_sorted, tile_sorted, tiles_x: int):
     return torch.cat([x_local[None], y_local[None], attrs_sorted[2:9]], dim=0)
 
 
+class BinRasterize(torch.autograd.Function):
+    """Binning + tiled rasterization, differentiable in ``attr_cols``.
+
+    The counterpart of the JAX package's ``_bin_rasterize`` custom VJP.
+    ``attr_cols`` [9, N]: x, y, conic a/b/c, r, g, b, opacity per
+    gaussian. ``xy``, ``extent``, ``depth`` and ``mask`` only place the
+    gaussians in tiles: they enter detached, and the gradient of ``xy``
+    flows through ``attr_cols`` alone. Returns ([T, 4, 256] K3 tiles,
+    [T] tile written, 0-d overflow); tiles not written are undefined and
+    take no gradient.
+
+    Forward: binning (K1, K2), the padded schedule, K3. Backward: K4's
+    per-fragment gradients, one sort of the slots by gaussian, K5's sums
+    per gaussian and K6 back to gaussian order. On overflow the whole
+    gradient is zero, as in the JAX package: the truncated stream's
+    gradient would be an arbitrary subset.
+    """
+
+    @staticmethod
+    def forward(ctx, attr_cols, xy, extent, depth, mask, tiles_x: int,
+                tiles_y: int, f_cap: int, background: tuple,
+                cutoff_sq: float, mode: int, pad_slack: float, max_rows):
+        f_pad_cap = padded_capacity(f_cap, tiles_x * tiles_y, pad_slack)
+        stream, attrs_sorted, table = bin_splats_attrs(
+            xy, extent, depth, mask, attr_cols, tiles_x, tiles_y, f_cap,
+            max_rows=max_rows, cutoff_sq=cutoff_sq,
+            opacity_cull=mode != 1,
+        )
+        sched = pad_schedule(stream, f_pad_cap)
+        frags = tile_local_stream(attrs_sorted, stream.tile_id, tiles_x)
+        tiles = rasterize_tiles_fwd(frags, stream.tile_start, sched.draw_len,
+                                    background, cutoff_sq, mode)
+        overflow = stream.overflow | sched.truncated
+        ctx.save_for_backward(frags, stream.gauss_id, stream.tile_id,
+                              stream.tile_start, sched.tile_len,
+                              sched.draw_len, table.ints, tiles, overflow)
+        ctx.args = (background, cutoff_sq, mode)
+        ctx.mark_non_differentiable(sched.tile_written, overflow)
+        return tiles, sched.tile_written, overflow
+
+    @staticmethod
+    def backward(ctx, d_tiles, _written, _overflow):
+        (frags, gauss_id, tile_id, tile_start, tile_len, draw_len, tab_ints,
+         tiles, overflow) = ctx.saved_tensors
+        background, cutoff_sq, mode = ctx.args
+        n = tab_ints.shape[1]
+        dfrag = rasterize_tiles_bwd(frags, tile_start, tile_len, draw_len,
+                                    tiles, d_tiles.contiguous(), background,
+                                    cutoff_sq, mode)
+        keys, perm = sort_keys(gauss_id, tile_id, tile_start, draw_len, n)
+        gid_col = gid_column_sorted(tab_ints, n)
+        comp = segment_sums_sorted(keys, perm, dfrag, gid_col, n)
+        d_cols = uncompact_columns(comp, gid_col, n)
+        d_cols = torch.where(overflow, 0.0, d_cols)
+        return (d_cols,) + (None,) * 12
+
+
 def rasterize_splats(xy, depth, conic, extent, mask, rgb, opacity,
                      tiles_x: int, tiles_y: int, f_cap: int,
                      background: tuple, cutoff_sq: float = 9.0, mode: int = 0,
@@ -171,24 +235,19 @@ def rasterize_splats(xy, depth, conic, extent, mask, rgb, opacity,
     Bins (K1, K2), applies the JAX package's padded-schedule capacity
     (``pad_slack`` scales its per-tile padding headroom; truncation is
     folded into ``overflow``), rasterizes (K3), and composites tiles the
-    schedule does not draw to the background.
+    schedule does not draw to the background. Differentiable in ``xy``,
+    ``conic``, ``rgb`` and ``opacity`` (:class:`BinRasterize`).
     """
-    f_pad_cap = padded_capacity(f_cap, tiles_x * tiles_y, pad_slack)
     opac = opacity * mask  # culled gaussians contribute nothing
     attr_cols = torch.cat([xy.T, conic.T, rgb.T, opac[None, :]], dim=0)
-
-    stream, attrs_sorted, _ = bin_splats_attrs(
-        xy, extent, depth, mask, attr_cols, tiles_x, tiles_y, f_cap,
-        max_rows=max_rows, cutoff_sq=cutoff_sq,
-        opacity_cull=mode != 1,
+    tiles, written, overflow = BinRasterize.apply(
+        attr_cols, xy.detach(), extent.detach(), depth.detach(), mask,
+        tiles_x, tiles_y, f_cap, background, cutoff_sq, mode, pad_slack,
+        max_rows,
     )
-    sched = pad_schedule(stream, f_pad_cap)
-    frags = tile_local_stream(attrs_sorted, stream.tile_id, tiles_x)
-    tiles = rasterize_tiles_fwd(frags, stream.tile_start, sched.draw_len,
-                                background, cutoff_sq, mode)
     bg_block = device_constant([*background, 1.0], xy.device)[None, :, None]
-    tiles = torch.where(sched.tile_written[:, None, None], tiles, bg_block)
-    return tiles, stream.overflow | sched.truncated
+    tiles = torch.where(written[:, None, None], tiles, bg_block)
+    return tiles, overflow
 
 
 def render(
@@ -210,7 +269,8 @@ def render(
     pad_slack: float = 1.0,
     max_rows: Optional[int] = None,
 ) -> RenderResult:
-    """Tiled forward render to [H, W, 3] on the inputs' device.
+    """Tiled render to [H, W, 3] on the inputs' device, differentiable in
+    ``means``, ``cov3d_sigma6``, ``base_color``, ``opacity`` and ``sh``.
 
     ``means`` [N,3], ``cov3d_sigma6`` [N,6], ``base_color`` [N,3] in [0,1],
     ``opacity`` [N] in [0,1], optional ``sh`` [N,15,3]; the other knobs as
@@ -218,8 +278,6 @@ def render(
     (``max_fragments``, ``max_rows``, or the padded schedule sized by
     ``pad_slack``) was exceeded and the image is missing fragments.
     """
-    _check_forward_only(means, cov3d_sigma6, base_color, opacity, sh,
-                        *(model_transform or ()))
     h, w_px = camera.height, camera.width
     tiles_x, tiles_y = num_tiles(w_px, h)
     n = means.shape[0]
