@@ -4,8 +4,8 @@
 
 Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
 
-1. build the port's kernels from its csrc/ sources (one nvcc per source,
-   all started together);
+1. build the port's kernels from its csrc/ sources and the kernel-bundle
+   sources of phases 10-11 (one nvcc per source, all started together);
 2. hold each forward kernel against its plain torch version on the card,
    on a mid scene (65,536 gaussians, 512x512): K1 and K2 bit for bit, K3
    within 3e-5 (the card's exp and FMA contraction differ from torch's);
@@ -35,11 +35,34 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    TrainableGaussians at the same size; each backward kernel held against
    its plain version and timed beside it and, for K5 and K6, beside the
    one PyTorch call that computes the same function;
-9. the profile of phase 5 for the training step.
+9. the profile of phase 5 for the training step;
+10. K8, the kernel-bundle launcher, at mid size (66,773 items, a ragged
+    tail): every bundle shape of tests/test_kernel_bundle.py (map_add,
+    constants, both resource-ownership states, update_resources, several
+    groups and outputs, [N, 8] rows, entry points, a config-specialised
+    kernel), f16/i8/u8 casts and 3-byte rows at an odd address, each
+    against the plain launcher on CPU copies of its inputs, bit for bit;
+11. the core layer's compute path at full width: the bench scene's 1M
+    gaussians packed in each of the 12 layouts, uploaded into a
+    GaussiansBuffer, unpacked by a layout-specialised bundle through
+    csrc/gaussian.cuh (world position under a model transform, rgba, sh,
+    sigma6) and held to the port's plain unpack (casts bit for bit,
+    ROT_SCALE sigma within 1e-6 of the row's largest |sigma|); a quarter
+    of the buffer updated in place and unpacked again; download_packed
+    equal to the host pack bit for bit; download_gaussians round-tripping
+    the 3 reversible layouts and raising IrreversibleConfigError on the 9
+    others. The SINGLE/ROT_SCALE unpack is timed beside its plain version,
+    and a map_add bundle over 2^24 f32 items beside torch.add;
+12. K7: one-level bin_splats of the mid scene and of the bench scene's
+    projection at 1920x1080 (capacity: count_fragments x 1.5 rounded up
+    to 512), no overflow, every FragmentStream field equal to the same
+    binning on the CPU, K7 bit for bit against its plain version, and
+    timed beside it.
 
-Then a JSON line of the kernels (launches on the training step, errors,
-times, and the bound: the least time the card could take for the same
-work), the card's name and power limit from nvidia-smi, and last
+Then a JSON line of the kernels (launches on the training step, and for
+K7 and K8 on phases 11-12; errors, times, and the bound: the least time
+the card could take for the same work), the card's name and power limit
+from nvidia-smi, and last
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero; so
 does a machine without a CUDA card. The run uses one card: the first that
 CUDA_VISIBLE_DEVICES names, else card 0.
@@ -53,6 +76,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # Before torch starts CUDA: this run, and its contract line, see one card.
 os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
@@ -63,7 +87,18 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from wgpu_3dgs_core_tpu_torch import (  # noqa: E402
+    ALL_LAYOUTS,
+    BundleKernel,
     Camera,
+    Cov3dFormat,
+    IrreversibleConfigError,
+    KernelBundleBuilder,
+    KernelBundleResourceCountError,
+    ModelTransform,
+    ResourceGroupLayout,
+    ShFormat,
+    pack,
+    unpack,
     GaussianLayout,
     GaussiansBuffer,
     GaussianSoA,
@@ -80,15 +115,22 @@ from wgpu_3dgs_core_tpu_torch import (  # noqa: E402
 )
 from wgpu_3dgs_core_tpu_torch.ops import cuda  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import expand as ex  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.ops import unpack_bundle as ub  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import rasterize as ra  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import segreduce as sr  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops.transforms import (  # noqa: E402
     cov3d_from_rot_scale,
+    unpack_color,
+    unpack_cov3d,
+    unpack_sh,
 )
 from wgpu_3dgs_core_tpu_torch.render.train import FIT_HEADROOM  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops.binning import (  # noqa: E402
     CHUNK,
+    bbox_table,
+    bin_splats,
     bin_splats_attrs,
+    count_fragments,
     gaussian_table,
     num_tiles,
     pad_schedule,
@@ -96,6 +138,7 @@ from wgpu_3dgs_core_tpu_torch.ops.binning import (  # noqa: E402
     row_capacity,
     row_table,
 )
+from wgpu_3dgs_core_tpu_torch.ops.projection import project  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.render.renderer import (  # noqa: E402
     project_and_color,
     tile_local_stream,
@@ -121,6 +164,19 @@ SLICE_TOL = 1e-4
 K4_TOL = 1e-4
 K5_TOL = 1e-5
 GRAD_TOL = 1e-4
+# K8: the ROT_SCALE sigma of a bundle against the plain unpack, relative
+# to the row's largest |sigma| (csrc/gaussian.cuh rounds each step as
+# torch does, so 0 is expected); every other bundle output bit for bit.
+SIGMA_TOL = 1e-6
+BUNDLE_N = 66_773  # phase 10's items: not a multiple of any block size
+MAP_ADD_N = 1 << 24  # phase 11's map_add beside torch.add
+# Back-to-back calls per timing sample of K7, K8 and their yardsticks: a
+# bundle dispatch's Python enqueue (phase 11 prints it) is as long as a
+# short map's kernel.
+REPS = 20
+# Phase 11's model transform (tests/test_torch_ops.py's).
+MODEL = ModelTransform(pos=(0.3, -0.2, 0.5), rot=(0.1, 0.2, 0.3, 0.927),
+                       scale=(1.2, 0.8, 1.1))
 PROFILE_FWD = 10  # forwards (or training steps) per profile measurement
 ADAM_STEPS = 3
 LEARNING_RATE = 5e-3  # fit()'s default
@@ -181,8 +237,10 @@ def to_soa(means, q, scales, color, opac, sh):
                        scale=scales)
 
 
-def cuda_ms(fn, warmup=2, iters=10) -> float:
-    """Median time of a callable by CUDA events around it, in ms."""
+def cuda_ms(fn, warmup=2, iters=10, reps=1) -> float:
+    """Median time of a callable by CUDA events around it, in ms: each of
+    ``iters`` samples times ``reps`` back-to-back calls (more than one
+    keeps the host's enqueue of a short kernel out of its time)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -190,11 +248,25 @@ def cuda_ms(fn, warmup=2, iters=10) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def enqueue_ms(fn, reps=10) -> float:
+    """Host time to enqueue one call of ``fn`` (no synchronise between
+    calls), in ms: where it is near a kernel's time, the host paces it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
 
 
 def kernel_inputs(args, cam, max_fragments, max_rows, pad_slack, sh_deg=3,
@@ -315,12 +387,23 @@ def compare_k3(inp, tiles=None) -> float:
     return err
 
 
-def phase_build():
-    info = cuda.build()
+def phase_build(bundle_sources):
+    """The kernel library and the bundle sources, every nvcc started
+    together (the library's in one thread, the bundles' in another)."""
+    with ThreadPoolExecutor(2) as pool:
+        lib = pool.submit(cuda.build)
+        bundles = pool.submit(cuda.build_sources, bundle_sources)
+        info, infos = lib.result(), bundles.result()
     cuda.library()
     regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
+    bregs = sorted({int(ln.split("Used ")[1].split(" registers")[0])
+                    for b in infos for ln in b.log.splitlines()
+                    if "Used " in ln and "registers" in ln})
     print(f"phase 1 build: {info.seconds:.1f} s nvcc sm_90a -> "
-          f"{info.path.name}; ptxas: {' | '.join(regs)}", flush=True)
+          f"{info.path.name}; ptxas: {' | '.join(regs)}; "
+          f"{len(set(bundle_sources))} bundle sources in "
+          f"{max(b.seconds for b in infos):.1f} s (registers {bregs})",
+          flush=True)
 
 
 def mid_scene(device):
@@ -693,7 +776,8 @@ def phase_train(device, scene, inp, fwd_ms, errs):
     reset_launch_counts()
     res, loss, grads = step()
     torch.cuda.synchronize(device)
-    launches = launch_counts()
+    launches = {k: v for k, v in launch_counts().items()
+                if k in RENDER_KERNELS}
     if min(launches.values()) < 1:
         fail(f"a kernel of the training step did not run: {launches}")
     if bool(res.overflow):
@@ -763,7 +847,392 @@ def phase_train(device, scene, inp, fwd_ms, errs):
     return launches, ms, errs, lambda: step()[2], bi
 
 
+# ------------------------------------------------ phases 10-12: K8, K7
+
+
+def _map_add(a, b, out, *, scale=1.0):
+    out[...] = (a[...] + b[...]) * scale
+
+
+def _sum_prod(a, b, c, s, p):
+    s[...] = a[...] + b[...] + c[...]
+    p[...] = a[...] * b[...] * c[...]
+
+
+def _times(k):
+    def body(x, out):
+        out[...] = x[...] * float(k)
+    return body
+
+
+def _cov3d(c, out, *, config):
+    out[...] = unpack_cov3d(c[...], rot_scale=config)
+
+
+def _casts(h, q, c, oh, oq, oc):
+    oh[...] = unpack_cov3d(h[...], rot_scale=False)
+    oq[...] = unpack_sh(q[...], q.shape[0], q.device).reshape(-1, 45)
+    oc[...] = unpack_color(c[...])
+
+
+def _widen(x, out):
+    out[...] = x[...].float()
+
+
+def _times_cuda(k, width):
+    return BundleKernel(cuda=f"""
+__device__ void times{k}(const float* x, float* out) {{
+  for (int j = 0; j < {width}; ++j) out[j] = __fmul_rn(x[j], {k}.0f);
+}}""", entry=f"times{k}", plain=_times(k))
+
+
+MAP_ADD = BundleKernel(cuda="""
+__device__ void map_add(const float* a, const float* b, float* out) {
+  out[0] = __fmul_rn(__fadd_rn(a[0], b[0]), scale);
+}""", entry="map_add", plain=_map_add)
+SUM_PROD = BundleKernel(cuda="""
+__device__ void sum_prod(const float* a, const float* b, const float* c,
+                         float* s, float* p) {
+  s[0] = __fadd_rn(__fadd_rn(a[0], b[0]), c[0]);
+  p[0] = __fmul_rn(__fmul_rn(a[0], b[0]), c[0]);
+}""", entry="sum_prod", plain=_sum_prod)
+COV3D = BundleKernel(cuda="""
+__device__ void cov3d(const float* c, float* out) {
+  if (config) gs::unpack_cov3d_rot_scale(c, out);
+  else gs::unpack_cov3d_single(c, out);
+}""", entry="cov3d", plain=_cov3d)
+WIDEN = BundleKernel(cuda="""
+__device__ void widen(const uint8_t* x, float* out) {
+  for (int j = 0; j < 3; ++j) out[j] = float(x[j]);
+}""", entry="widen", plain=_widen)
+CASTS = BundleKernel(cuda="""
+__device__ void casts(const __half* h, const int8_t* q, const uint8_t* c,
+                      float* oh, float* oq, float* oc) {
+  gs::unpack_cov3d_half(h, oh);
+  gs::unpack_sh_norm8(q, oq);
+  gs::unpack_color(c, oc);
+}""", entry="casts", plain=_casts)
+
+
+def _map_add_builder():
+    return (KernelBundleBuilder().label("array map add")
+            .resource_layout(ResourceGroupLayout("inputs", arity=2))
+            .kernel(MAP_ADD).output(1))
+
+
+def bundle_cases(device):
+    """Phase 10's bundles, the shapes of tests/test_kernel_bundle.py at
+    BUNDLE_N items: (name, bundle, resources on the card)."""
+    n = BUNDLE_N
+    rng = np.random.default_rng(10)
+
+    def f32(*shape):
+        return torch.from_numpy(
+            rng.normal(size=(n, *shape)).astype(np.float32)).to(device)
+
+    a, b, c, x8 = f32(), f32(), f32(), f32(8)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    rot_scale = np.concatenate(
+        [q / np.linalg.norm(q, axis=1, keepdims=True),
+         rng.uniform(0.004, 0.012, (n, 3)).astype(np.float32)], axis=1)
+    cov7 = torch.from_numpy(rot_scale).to(device)
+    half = f32(6).half()
+    norm8 = torch.from_numpy(rng.integers(-128, 128, (n, 48), dtype=np.int8)
+                             ).to(device)
+    rgba = torch.from_numpy(rng.integers(0, 256, (n, 4), dtype=np.uint8)
+                            ).to(device)
+    # 3-byte rows starting 3 bytes into their storage: the staged copies
+    # take their byte path.
+    odd = torch.from_numpy(rng.integers(0, 256, (n + 1, 3), dtype=np.uint8)
+                           ).to(device)[1:]
+
+    def one(name, kernel, widths, groups, block, config=None, entry=None):
+        bld = KernelBundleBuilder().label(name)
+        for k, g in enumerate(groups):
+            bld.resource_layout(ResourceGroupLayout(f"group {k}", len(g)))
+        if entry is None:
+            bld.kernel(kernel)
+        else:
+            bld.kernel_module(kernel).entry_point(entry)
+        for w in widths:
+            bld.output(w)
+        if config is not None:
+            bld.layout_config(config)
+        return bld.block_size(block)
+
+    update = _map_add_builder().block_size(1024).build([[c, c]])
+    update.update_resources([[a, c]])
+    return [
+        ("map_add", _map_add_builder().block_size(256).build([[a, b]]),
+         [[a, b]]),
+        ("constants", _map_add_builder().constants(scale=10.0)
+         .block_size(64).build([[a, b]]), [[a, b]]),
+        ("caller-managed", _map_add_builder().block_size(128)
+         .build_without_resources(), [[b, c]]),
+        ("update_resources", update, [[a, c]]),
+        ("groups and outputs", one("sum prod", SUM_PROD, (1, 1),
+                                   [[a, b], [c]], 64).build([[a, b], [c]]),
+         [[a, b], [c]]),
+        ("[N, 8] rows", one("times2", _times_cuda(2, 8), (8,), [[x8]], 32)
+         .build([[x8]]), [[x8]]),
+        ("entry points", one("module", {"double": _times_cuda(2, 1),
+                                        "triple": _times_cuda(3, 1)},
+                             (1,), [[a]], 16, entry="triple").build([[a]]),
+         [[a]]),
+        ("config-specialised", one("cov3d", COV3D, (6,), [[cov7]], 8,
+                                   config=True).build([[cov7]]), [[cov7]]),
+        ("casts", one("casts", CASTS, (6, 45, 4), [[half, norm8, rgba]],
+                      256).build([[half, norm8, rgba]]),
+         [[half, norm8, rgba]]),
+        ("unaligned rows", one("widen", WIDEN, (3,), [[odd]], 64)
+         .build([[odd]]), [[odd]]),
+    ]
+
+
+def bundle_sources(cases):
+    """Every bundle source of phases 10-11, to build in phase 1."""
+    return ([b.cuda_source(BUNDLE_N, res) for _, b, res in cases]
+            + [ub.unpack_source(layout, MODEL) for layout in ALL_LAYOUTS])
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def equal_bits(a, b) -> bool:
+    return a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def abs_err(a, b) -> float:
+    """max |a - b| over two tensors of one shape, in f64 (0 when empty)."""
+    d = (a.double() - b.to(a.device).double()).abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def phase_bundles(cases):
+    """Each bundle on the card against the plain launcher on CPU copies of
+    the same inputs, bit for bit. Returns the largest abs difference over
+    every output (0 when all are equal)."""
+    n = BUNDLE_N
+    err = 0.0
+    for name, bundle, res in cases:
+        got = as_tuple(bundle.dispatch(n, res if name == "caller-managed"
+                                       else None))
+        cpu_res = [[t.cpu() for t in g] for g in res]
+        want = as_tuple(bundle.dispatch(n, cpu_res))
+        if not all(g.shape == w.shape for g, w in zip(got, want)):
+            fail(f"K8 bundle {name!r}: output shapes differ")
+        err = max([err] + [abs_err(g.cpu(), w) for g, w in zip(got, want)])
+        if not all(equal_bits(g.cpu(), w) for g, w in zip(got, want)):
+            fail(f"K8 bundle {name!r} differs from the plain launcher")
+        if name == "caller-managed":
+            try:
+                bundle.dispatch(n)
+            except KernelBundleResourceCountError:
+                pass
+            else:
+                fail("a bundle without resources dispatched")
+    print(f"phase 10 K8 kernel bundles vs the plain launcher ({n} items): "
+          + ", ".join(name for name, _, _ in cases)
+          + f" bit-identical (max abs err {err})", flush=True)
+    return err
+
+
+def check_unpack(outs, buf, layout):
+    """A bundle unpack against the plain one: world, rgba and sh bit for
+    bit, sigma6 bit for bit for SINGLE/HALF and within SIGMA_TOL of the
+    row's largest |sigma| for ROT_SCALE. Returns (max abs err over the
+    four outputs, sigma's normalized err)."""
+    d = buf.data
+    want = ub.unpack_plain(d.pos, d.color, d.sh, d.cov3d, layout, MODEL)
+    err = max(abs_err(a, b) for a, b in zip(outs, want))
+    for name, a, b in zip(("world", "rgba", "sh"), outs[:3], want[:3]):
+        if not equal_bits(a, b):
+            fail(f"K8 unpack {layout}: {name} differs from the plain unpack")
+    sig, sig_want = outs[3], want[3]
+    if layout.cov3d != Cov3dFormat.ROT_SCALE:
+        if not equal_bits(sig, sig_want):
+            fail(f"K8 unpack {layout}: sigma6 cast differs")
+        return err, 0.0
+    if not torch.isfinite(sig).all():
+        fail(f"K8 unpack {layout}: sigma6 is not finite")
+    norm = normalized_err(sig, sig_want)
+    if not norm <= SIGMA_TOL:
+        fail(f"K8 unpack {layout}: sigma6 differs by {norm} normalized")
+    return err, norm
+
+
+def packed_bytes_equal(a, b) -> bool:
+    return all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and x.dtype == y.dtype
+                                      and x.tobytes() == y.tobytes())
+        for x, y in ((a.pos, b.pos), (a.color, b.color), (a.sh, b.sh),
+                     (a.cov3d, b.cov3d)))
+
+
+def phase_core(device, soa):
+    """The core layer's compute path at full width in all 12 layouts (the
+    path whose launches phase 11 reports), then its timing."""
+    n = len(soa)
+    start, q = n // 2, n // 4
+    fresh = to_soa(*draw_scene(q, 11, **BENCH_SCENE))
+    updated = GaussianSoA.concatenate([soa[:start], fresh,
+                                       soa[start + q:]])
+    errs, norms, reversible = [], [], 0
+    default = None
+    torch.cuda.synchronize(device)
+    reset_launch_counts()
+    for layout in ALL_LAYOUTS:
+        packed = pack(soa, layout)
+        buf = GaussiansBuffer.new_with_packed(packed, device)
+        bundle = ub.unpack_bundle(buf, MODEL)
+        e1, n1 = check_unpack(bundle.dispatch(n), buf, layout)
+        buf.update_range(start, fresh)  # in place: the bundle sees it
+        e2, n2 = check_unpack(bundle.dispatch(n), buf, layout)
+        errs += [e1, e2]
+        norms += [n1, n2]
+        want = pack(fresh, layout)
+        for name in ("pos", "color", "sh", "cov3d"):
+            field = getattr(packed, name)
+            if field is not None:
+                field[start:start + q] = getattr(want, name)
+        if not packed_bytes_equal(buf.download_packed(), packed):
+            fail(f"download_packed of {layout} differs from the host pack")
+        if (layout.sh != ShFormat.NONE
+                and layout.cov3d == Cov3dFormat.ROT_SCALE):
+            got, host = buf.download_gaussians(), unpack(packed)
+            if not all(getattr(got, f).tobytes() == getattr(host, f).tobytes()
+                       for f in ("rot", "pos", "color", "sh", "scale")):
+                fail(f"download_gaussians of {layout} differs")
+            if not all(getattr(got, f).tobytes() == getattr(updated, f)
+                       .tobytes() for f in ("rot", "pos", "color", "scale")):
+                fail(f"download_gaussians of {layout} lost the gaussians")
+            reversible += 1
+        else:
+            try:
+                buf.download_gaussians()
+            except IrreversibleConfigError:
+                pass
+            else:
+                fail(f"download_gaussians of {layout} did not raise")
+        if layout == GaussianLayout():
+            default = (buf, bundle)
+        del buf, bundle
+    torch.cuda.synchronize(device)
+    launches = launch_counts()["kernel_bundle"]
+    if launches < 1:
+        fail("no kernel bundle ran on the core path")
+
+    buf, bundle = default
+    d = buf.data
+    unpack_ms = cuda_ms(lambda: bundle.dispatch(n), reps=REPS)
+    plain_ms = cuda_ms(lambda: ub.unpack_plain(d.pos, d.color, d.sh, d.cov3d,
+                                               buf.layout, MODEL), reps=REPS)
+    in_bytes = sum(t.numel() * t.element_size() for t in ub.resources(buf))
+    out_bytes = 4 * sum(ub.OUTPUT_WIDTHS) * n
+    unpack_bound = bound(in_bytes + out_bytes, 0)
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    a, b = (torch.rand(MAP_ADD_N, generator=gen, device=device)
+            for _ in range(2))
+    add = _map_add_builder().build([[a, b]])
+    if not equal_bits(add.dispatch(MAP_ADD_N)[:, 0], torch.add(a, b)):
+        fail("K8 map_add differs from torch.add")
+    add_ms = cuda_ms(lambda: add.dispatch(MAP_ADD_N), reps=REPS)
+    torch_add_ms = cuda_ms(lambda: torch.add(a, b), reps=REPS)
+    host_ms = (enqueue_ms(lambda: add.dispatch(MAP_ADD_N), REPS),
+               enqueue_ms(lambda: torch.add(a, b), REPS))
+    add_bound = bound(3 * 4 * MAP_ADD_N, 0)
+    print(f"phase 11 core path ({n} gaussians, 12 layouts, model transform "
+          f"{MODEL}): upload, bundle unpack, update_range of {q} at {start} "
+          f"(in place) and unpack again: world/rgba/sh and sigma casts "
+          f"bit-identical, max abs err over every output {max(errs):.3g}, "
+          f"ROT_SCALE sigma normalized {max(norms):.3g} (tol {SIGMA_TOL}); "
+          f"download_packed "
+          f"bit-identical to the host pack in 12 layouts; download_gaussians "
+          f"round-trips {reversible}, raises IrreversibleConfigError on "
+          f"{12 - reversible}; {launches} bundle launches; SINGLE/ROT_SCALE "
+          f"unpack {unpack_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{unpack_bound[0]:.3f} ms ({in_bytes + out_bytes} B); map_add "
+          f"over {MAP_ADD_N} f32 {add_ms:.3f} ms, torch.add "
+          f"{torch_add_ms:.3f} ms, bound {add_bound[0]:.3f} ms; host "
+          f"enqueue per call: bundle dispatch {host_ms[0]:.4f} ms, torch.add "
+          f"{host_ms[1]:.4f} ms", flush=True)
+    return (launches, max(errs), (unpack_ms, plain_ms, None), unpack_bound)
+
+
+def k7_inputs(spl, tiles_x, tiles_y, cap):
+    """K7's arguments as bin_splats hands them."""
+    table, total = bbox_table(spl.xy, spl.extent, spl.mask, tiles_x, tiles_y)
+    return table, total, cap, tiles_x, tiles_x * tiles_y
+
+
+def phase_binning(device, mid, scene):
+    """One-level bin_splats of the mid and bench scenes' projections (the
+    path whose K7 launches phase 12 reports), then K7 against its plain
+    version and the stream against the CPU's."""
+    runs = []
+    for name, cam, args in (("mid", mid[0], mid[1]),
+                            ("bench", scene[2], scene[3])):
+        means, cov6, _, opac, _ = args
+        spl = project(means, cov6, cam, opacity=opac)
+        tx, ty = num_tiles(cam.width, cam.height)
+        count = int(count_fragments(spl.xy, spl.extent, spl.mask, tx, ty))
+        cap = -(-(3 * count) // 1024) * 512  # count x 1.5, up to 512
+        runs.append((name, spl, tx, ty, cap))
+    torch.cuda.synchronize(device)
+    reset_launch_counts()
+    streams = [bin_splats(spl.xy, spl.extent, spl.depth, spl.mask, tx, ty,
+                          cap) for _, spl, tx, ty, cap in runs]
+    torch.cuda.synchronize(device)
+    launches = launch_counts()["expand_fragments_bbox"]
+    if launches < 1:
+        fail("K7 did not run on the one-level binning")
+    notes, err = [], 0.0
+    for (name, spl, tx, ty, cap), stream in zip(runs, streams):
+        if bool(stream.overflow):
+            fail(f"bin_splats of the {name} scene overflowed")
+        cpu = bin_splats(*(t.cpu() for t in (spl.xy, spl.extent, spl.depth,
+                                            spl.mask)), tx, ty, cap)
+        for field, a, b in zip(stream._fields, stream, cpu):
+            if not torch.equal(a.cpu(), b):
+                fail(f"bin_splats of the {name} scene: {field} differs "
+                     "from the CPU's")
+        k7 = k7_inputs(spl, tx, ty, cap)
+        got, want = ex.expand_fragments(*k7), ex.expand_fragments_plain(*k7)
+        err = max([err] + [abs_err(g, w) for g, w in zip(got, want)])
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1])):
+            fail(f"K7 differs from its plain version on the {name} scene")
+        notes.append(f"{name} {spl.xy.shape[0]} gaussians, "
+                     f"{int(stream.num_fragments)} fragments, capacity {cap}")
+    # K7's bound: the bytes it must move. It reads 5 of the table's 6
+    # columns (off, span, x0, y0, gid; not the count) of the live rows
+    # only (the count-0 tail rows own no slot), and writes tile and gid
+    # of every slot.
+    table, cap = k7[0], k7[2]
+    live = int((table.ints[ex.TAB_CNT] > 0).sum())
+    k7_bytes = 4 * (ex.TAB_ROWS - 1) * live + 8 * cap
+    ms = (cuda_ms(lambda: ex.expand_fragments(*k7), reps=REPS),
+          cuda_ms(lambda: ex.expand_fragments_plain(*k7), reps=REPS), None)
+    k7_bound = bound(k7_bytes, 0)
+    print(f"phase 12 one-level bin_splats (K7): " + "; ".join(notes)
+          + f"; no overflow, every stream field equal to the CPU's, K7 "
+          f"bit-identical to plain (max abs err {err}); {launches} K7 "
+          f"launches; bench K7 {ms[0]:.3f} ms, plain {ms[1]:.3f} ms, bound "
+          f"{k7_bound[0]:.4f} ms ({k7_bytes} B: 20 B x {live} live table "
+          f"rows + 8 B x {cap} slots; 24 B x all {table.ints.shape[1]} "
+          f"rows would give "
+          f"{bound(4 * ex.TAB_ROWS * table.ints.shape[1] + 8 * cap, 0)[0]:.4f}"
+          f" ms)", flush=True)
+    return launches, err, ms, k7_bound
+
+
 FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
+RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
+                                    "uncompact")
 KERNELS = (
     ("expand_rows", "wgpu_3dgs_core_tpu_torch/csrc/expand.cu",
      "wgpu_3dgs_core_tpu/ops/expand.py:571"),
@@ -777,11 +1246,16 @@ KERNELS = (
      "wgpu_3dgs_core_tpu/ops/segreduce.py:105"),
     ("uncompact", "wgpu_3dgs_core_tpu_torch/csrc/segreduce.cu",
      "wgpu_3dgs_core_tpu/ops/segreduce.py:222"),
+    ("expand_fragments_bbox", "wgpu_3dgs_core_tpu_torch/csrc/expand.cu",
+     "wgpu_3dgs_core_tpu/ops/expand.py:191"),
+    ("kernel_bundle", "wgpu_3dgs_core_tpu_torch/csrc/bundle.cuh",
+     "wgpu_3dgs_core_tpu/ops/kernel_bundle.py:148"),
 )
 
 
 def run(device: torch.device):
-    phase_build()
+    cases = bundle_cases(device)
+    phase_build(bundle_sources(cases))
     mid = mid_scene(device)
     errs = phase_kernels(mid)
     phase_spec(device)
@@ -800,12 +1274,21 @@ def run(device: torch.device):
           f"{counts['evaluated']} evaluated and {counts['blended']} blended "
           f"(fragment, pixel) pairs, {counts['n_live']} gaussians with "
           f"fragments", flush=True)
+    errs = dict(zip(RENDER_KERNELS, errs))
+    errs["kernel_bundle"] = phase_bundles(cases)
+    (launches["kernel_bundle"], err8, ms["kernel_bundle"],
+     bounds["kernel_bundle"]) = phase_core(device, scene[0])
+    errs["kernel_bundle"] = max(errs["kernel_bundle"], err8)
+    (launches["expand_fragments_bbox"], errs["expand_fragments_bbox"],
+     ms["expand_fragments_bbox"],
+     bounds["expand_fragments_bbox"]) = phase_binning(device, mid, scene)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err, "ms": ms[name][0],
-         "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": ms[name][2]}
-        for (name, src, rep), err in zip(KERNELS, errs)
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": ms[name][0], "plain_ms": ms[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": ms[name][2]}
+        for name, src, rep in KERNELS
     ]}
 
 

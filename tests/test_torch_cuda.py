@@ -1,6 +1,8 @@
 """The torch port's CUDA kernels on the card (marker ``cuda``): the
 forward kernels K1-K3 and the backward kernels K4-K6 against their plain
-versions, launch counts, and the determinism of the backward.
+versions, launch counts, and the determinism of the backward; K7
+(one-level binning) and K8 (kernel bundles, the gaussian unpack of every
+layout) against their plain versions.
 
 These need a CUDA card and nvcc, and skip without one. On a machine with
 a card: ``python -m pytest -m cuda tests/test_torch_cuda.py``, with
@@ -16,8 +18,10 @@ import wgpu_3dgs_core_tpu_torch as T
 from wgpu_3dgs_core_tpu_torch.ops import expand as TE
 from wgpu_3dgs_core_tpu_torch.ops import rasterize as TR
 from wgpu_3dgs_core_tpu_torch.ops import segreduce as TS
+from wgpu_3dgs_core_tpu_torch.ops import unpack_bundle as UB
 from wgpu_3dgs_core_tpu_torch.ops.binning import (
-    bin_splats_attrs, gaussian_table, num_tiles, pad_schedule, row_table,
+    bin_splats, bin_splats_attrs, count_fragments, gaussian_table, num_tiles,
+    pad_schedule, row_table,
 )
 from wgpu_3dgs_core_tpu_torch.ops.projection import project
 from wgpu_3dgs_core_tpu_torch.ops.transforms import cov3d_from_rot_scale
@@ -30,6 +34,8 @@ CAM = T.Camera.look_at(eye=(0.0, 0.0, -6.0), target=(0.0, 0.0, 0.0),
                        width=W, height=H, fov_y=0.9)
 BG = (0.1, 0.2, 0.3)
 FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
+RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
+                                    "uncompact")
 
 
 @pytest.fixture(scope="module")
@@ -164,7 +170,7 @@ def test_backward_is_deterministic(cuda):
     T.reset_launch_counts()
     first = grads(args)
     counts = T.launch_counts()
-    assert all(v == 1 for v in counts.values()), counts
+    assert all(counts[k] == 1 for k in RENDER_KERNELS), counts
     second = grads(args)
     for a, b in zip(first, second):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -180,7 +186,9 @@ def test_render_on_card_matches_cpu_and_counts_launches(cuda):
     torch.cuda.synchronize()
     assert T.launch_counts() == {"expand_rows": 1, "expand_fragments": 1,
                                  "rasterize_fwd": 1, "rasterize_bwd": 0,
-                                 "segment_sums": 0, "uncompact": 0}
+                                 "segment_sums": 0, "uncompact": 0,
+                                 "expand_fragments_bbox": 0,
+                                 "kernel_bundle": 0}
     ref = T.render(*(a.cpu() for a in args), CAM, background=BG)
     assert not bool(res.overflow) and not bool(ref.overflow)
     err = float((res.image.cpu() - ref.image).abs().max())
@@ -207,3 +215,68 @@ def test_empty_and_culled_scenes_on_card(cuda):
         bg = torch.tensor(BG, device=cuda)
         assert torch.equal(res.image, bg.expand_as(res.image))
         assert bool((res.transmittance == 1.0).all())
+
+
+def test_bin_splats_k7_equals_plain(cuda):
+    """K7 bit for bit against its plain version, and the whole one-level
+    stream on the card against the same stream on the CPU."""
+    spl, _, tx, ty = _binned(cuda)
+    cap = -(-int(count_fragments(spl.xy, spl.extent, spl.mask, tx, ty))
+            * 3 // 2 // 512) * 512
+    T.reset_launch_counts()
+    got = bin_splats(spl.xy, spl.extent, spl.depth, spl.mask, tx, ty, cap)
+    torch.cuda.synchronize()
+    assert T.launch_counts()["expand_fragments_bbox"] == 1
+    want = bin_splats(*(t.cpu() for t in (spl.xy, spl.extent, spl.depth,
+                                          spl.mask)), tx, ty, cap)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert not bool(got.overflow) and int(got.num_fragments) > 0
+    n = spl.xy.shape[0]
+    counts = torch.randint(0, 9, (n,), device=cuda, dtype=torch.int32)
+    off = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    spans = torch.randint(1, 4, (n,), device=cuda, dtype=torch.int32)
+    table = TE.build_segment_table(off, counts, spans, spans, spans,
+                                   torch.arange(n, device=cuda,
+                                                dtype=torch.int32))
+    total = counts.sum(dtype=torch.int32)
+    for f_cap in (int(total) - 100, int(total) + 777):
+        k = TE.expand_fragments(table, total, f_cap, tx, tx * ty)
+        p = TE.expand_fragments_plain(table, total, f_cap, tx, tx * ty)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+def test_unpack_bundle_equals_plain(cuda):
+    """K8 running the gaussian unpack of every layout: bit for bit against
+    the port's plain unpack, before and after update_range."""
+    for layout in T.ALL_LAYOUTS:
+        _check_unpack_bundle(cuda, layout)
+
+
+def _check_unpack_bundle(cuda, layout):
+    rng = np.random.default_rng(5)
+    n = 3001
+
+    def soa(k):
+        q = rng.normal(size=(k, 4)).astype(np.float32)
+        return T.GaussianSoA(
+            rot=q / np.linalg.norm(q, axis=1, keepdims=True),
+            pos=rng.normal(size=(k, 3)).astype(np.float32),
+            color=rng.integers(0, 256, (k, 4)).astype(np.uint8),
+            sh=rng.normal(size=(k, 15, 3)).astype(np.float32),
+            scale=rng.uniform(0.01, 0.2, (k, 3)).astype(np.float32))
+
+    buf = T.GaussiansBuffer.new(soa(n), layout, cuda)
+    mt = T.ModelTransform(pos=(0.3, -0.2, 0.5), rot=(0.1, 0.2, 0.3, 0.927),
+                          scale=(1.2, 0.8, 1.1))
+    bundle = UB.unpack_bundle(buf, mt)
+    for _ in range(2):
+        T.reset_launch_counts()
+        got = bundle.dispatch(n)
+        torch.cuda.synchronize()
+        assert T.launch_counts()["kernel_bundle"] == 1
+        d = buf.data
+        want = UB.unpack_plain(d.pos, d.color, d.sh, d.cov3d, layout, mt)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        buf.update_range(1000, soa(700))

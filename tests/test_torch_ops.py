@@ -146,3 +146,28 @@ def test_camera_view_matrix_bit_identical():
     mine = Camera.look_at(eye=(0.5, -1.0, -5.0), target=(0.0, 0.0, 0.0),
                           width=64, height=48, fov_y=0.8)
     assert mine == cam
+
+
+MT = ((0.3, -0.2, 0.5), (0.1, 0.2, 0.3, 0.927), (1.2, 0.8, 1.1))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_model_transform_functions(scene, batched):
+    """model_scale_rot_mat, model_transform_inv_sr_mat,
+    model_transform_mat and model_to_world against the JAX package's, for
+    one transform, and for one rotation and scale per point with one
+    translation (1e-6)."""
+    means, q, s, *_ = scene
+    if batched:
+        pos, rot, scale = np.asarray(MT[0], np.float32), q, s * 10.0
+    else:
+        pos, rot, scale = (np.asarray(v, np.float32) for v in MT)
+    t = [tt(v) for v in (pos, rot, scale)]
+    j = [jnp.asarray(v) for v in (pos, rot, scale)]
+    _close(ttr.model_scale_rot_mat(*t[1:]), jtr.model_scale_rot_mat(*j[1:]))
+    _close(ttr.model_transform_inv_sr_mat(*t[1:]),
+           jtr.model_transform_inv_sr_mat(*j[1:]))
+    _close(ttr.model_transform_mat(*t), jtr.model_transform_mat(*j))
+    got = ttr.model_to_world(*t, tt(means))
+    _close(got, jtr.model_to_world(*j, jnp.asarray(means)))
+    assert got.shape == (64, 4) and bool((got[:, 3] == 1.0).all())

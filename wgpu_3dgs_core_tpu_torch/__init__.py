@@ -4,21 +4,27 @@ Hopper (sm_90a).
 
 The JAX package ``wgpu_3dgs_core_tpu`` is the reference this port is held
 against; this package imports ``torch`` and never ``jax``. Module names
-mirror the JAX package's. The hot path runs six kernels built from
+mirror the JAX package's. The render path runs six kernels built from
 ``csrc/`` on first use (ops/cuda.py): K1 and K2, the two levels of
 fragment expansion (ops/expand.py); K3 and K4, the forward tile rasterizer
 and its backward (ops/rasterize.py); K5 and K6, the backward's segment
 sums per gaussian and their scatter back to gaussian order
-(ops/segreduce.py). On CPU tensors each runs its plain torch version.
+(ops/segreduce.py). The core layer's compute path runs K8, the kernel
+bundle launcher (ops/kernel_bundle.py, with the device library
+csrc/gaussian.cuh; ops/unpack_bundle.py unpacks a GaussiansBuffer through
+it), and the one-level binning K7 (ops/expand.py, ops/binning.py
+bin_splats). On CPU tensors each runs its plain torch version.
 Entry points run on the card unless they are given CPU tensors or
 ``device="cpu"``.
 """
 
 from .buffer import (  # noqa: F401
+    FixedSizeBufferWrapper,
     GaussianDisplayMode,
     GaussiansBuffer,
     GaussianTransform,
     ModelTransform,
+    download,
 )
 from .errors import *  # noqa: F401,F403
 from .layouts import (  # noqa: F401
@@ -31,7 +37,15 @@ from .layouts import (  # noqa: F401
     unpack,
 )
 from .models import *  # noqa: F401,F403
-from .ops import launch_counts, reset_launch_counts  # noqa: F401
+from .ops import (  # noqa: F401
+    BundleKernel,
+    KernelBundle,
+    KernelBundleBuilder,
+    OutputSpec,
+    ResourceGroupLayout,
+    launch_counts,
+    reset_launch_counts,
+)
 from .render import (  # noqa: F401
     Camera,
     RenderResult,

@@ -2,8 +2,12 @@
 
 The counterpart of ``wgpu_3dgs_core_tpu.buffer``. A :class:`GaussiansBuffer`
 holds one torch tensor per packed field, all on one device named when the
-buffer is made (the card unless the caller names another). :class:`GaussianTransform` keeps the reference's u32 flag
-packing bit for bit; :class:`ModelTransform` hands out its TRS as tensors.
+buffer is made (the card unless the caller names another). Updates write
+into those tensors in place, so their storage and pointers stay fixed for
+the buffer's life (a kernel bundle built with them as resources sees every
+update); downloads (:func:`download`) synchronise and copy to host numpy.
+:class:`GaussianTransform` keeps the reference's u32 flag packing bit for
+bit; :class:`ModelTransform` hands out its TRS as tensors.
 """
 
 from __future__ import annotations
@@ -14,8 +18,20 @@ from enum import IntEnum
 import numpy as np
 import torch
 
-from ..errors import GaussiansBufferTryFromBufferError
-from ..layouts import GaussianLayout, PackedGaussians, pack
+from ..errors import (
+    DownloadBufferError,
+    FixedSizeBufferWrapperError,
+    GaussiansBufferTryFromBufferError,
+    GaussiansBufferUpdateError,
+    GaussiansBufferUpdateRangeError,
+)
+from ..layouts import GaussianLayout, PackedGaussians, pack, unpack
+
+_TORCH_DTYPES = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float16): torch.float16,
+    np.dtype(np.int8): torch.int8,
+}
 
 
 def _to_device(array, device) -> torch.Tensor:
@@ -24,13 +40,53 @@ def _to_device(array, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
 
+def download(tensor: torch.Tensor) -> np.ndarray:
+    """Device -> host transfer, the BufferWrapper.download analog
+    (reference: src/buffer/mod.rs:27-101): waits for the work queued on a
+    card, then copies. A failed transfer (a CUDA fault surfacing at the
+    synchronise, a tensor without storage) raises
+    :class:`DownloadBufferError`, as the reference's failed map does
+    (src/error.rs:56-63)."""
+    try:
+        if tensor.is_cuda:
+            torch.cuda.synchronize(tensor.device)
+        return tensor.detach().cpu().numpy()
+    except RuntimeError as e:
+        raise DownloadBufferError(str(e)) from e
+
+
+class FixedSizeBufferWrapper:
+    """A tensor validated to hold exactly one POD of a known size, the
+    analog of FixedSizeBufferWrapper (reference: src/buffer/mod.rs:111-150):
+    construction validates the byte size; ``download_single`` pulls the
+    value."""
+
+    def __init__(self, tensor: torch.Tensor, expected_nbytes: int):
+        nbytes = tensor.numel() * tensor.element_size()
+        if nbytes != expected_nbytes:
+            raise FixedSizeBufferWrapperError(
+                buffer_size=nbytes, expected_size=expected_nbytes
+            )
+        self._tensor = tensor
+
+    @property
+    def buffer(self) -> torch.Tensor:
+        """The wrapped tensor (the reference's Deref to wgpu::Buffer)."""
+        return self._tensor
+
+    def download_single(self) -> np.ndarray:
+        """Device -> host single POD (reference: mod.rs:137-149)."""
+        return download(self._tensor)
+
+
 class GaussiansBuffer:
     """Device-resident packed gaussian storage
     (reference: src/buffer/gaussian.rs:13-229).
 
     ``data`` is a :class:`PackedGaussians` whose fields are torch tensors on
     ``device``: pos f32[N, 3], color u8[N, 4], sh (layout dtype) or None,
-    cov3d (layout dtype).
+    cov3d (layout dtype). ``update`` / ``update_range`` keep the reference's
+    count checks and write in place.
     """
 
     def __init__(self, packed_device: PackedGaussians,
@@ -56,6 +112,28 @@ class GaussiansBuffer:
                 sh=(None if packed.sh is None
                     else _to_device(packed.sh, device)),
                 cov3d=_to_device(packed.cov3d, device),
+            ),
+            device,
+        )
+
+    @classmethod
+    def new_empty(cls, n: int, layout: GaussianLayout = GaussianLayout(),
+                  device="cuda") -> "GaussiansBuffer":
+        """Zero-initialized buffer of n gaussians
+        (reference: gaussian.rs:71-89)."""
+
+        def zeros(width, dtype):
+            return torch.zeros((n, width), dtype=_TORCH_DTYPES[dtype],
+                               device=device)
+
+        return cls(
+            PackedGaussians(
+                layout=layout,
+                pos=torch.zeros((n, 3), dtype=torch.float32, device=device),
+                color=torch.zeros((n, 4), dtype=torch.uint8, device=device),
+                sh=(None if layout.sh_dtype is None
+                    else zeros(layout.sh_width, layout.sh_dtype)),
+                cov3d=zeros(layout.cov3d_width, layout.cov3d_dtype),
             ),
             device,
         )
@@ -103,17 +181,57 @@ class GaussiansBuffer:
     def __len__(self) -> int:
         return len(self._data)
 
+    @property
+    def is_empty(self) -> bool:
+        return len(self) == 0
+
+    @property
+    def nbytes(self) -> int:
+        return len(self) * self.layout.bytes_per_gaussian
+
+    def update(self, gaussians) -> None:
+        """Whole-buffer update, in place; counts must match
+        (reference: gaussian.rs:104-137)."""
+        if len(gaussians) != len(self):
+            raise GaussiansBufferUpdateError(
+                count=len(gaussians), expected_count=len(self)
+            )
+        self.update_range(0, gaussians)
+
+    def update_range(self, start: int, gaussians) -> None:
+        """Pack ``gaussians`` on the host and write them at ``start``, in
+        place (``tensor[start:stop].copy_``): the buffer's tensors keep
+        their storage, where the JAX package builds new arrays. The range
+        must fit (reference: gaussian.rs:142-183)."""
+        if start + len(gaussians) > len(self):
+            raise GaussiansBufferUpdateRangeError(
+                count=len(gaussians), start=start, expected_count=len(self)
+            )
+        packed = pack(gaussians, self.layout)
+        stop = start + len(gaussians)
+        d = self._data
+        for name in ("pos", "color", "sh", "cov3d"):
+            dst = getattr(d, name)
+            if dst is not None:
+                dst[start:stop].copy_(torch.from_numpy(getattr(packed, name)))
+
     def download_packed(self) -> PackedGaussians:
         """Device -> host packed numpy arrays
         (reference: src/buffer/mod.rs:27-101)."""
         d = self._data
         return PackedGaussians(
             layout=d.layout,
-            pos=d.pos.cpu().numpy(),
-            color=d.color.cpu().numpy(),
-            sh=None if d.sh is None else d.sh.cpu().numpy(),
-            cov3d=d.cov3d.cpu().numpy(),
+            pos=download(d.pos),
+            color=download(d.color),
+            sh=None if d.sh is None else download(d.sh),
+            cov3d=download(d.cov3d),
         )
+
+    def download_gaussians(self):
+        """Device -> host -> canonical :class:`GaussianSoA` (reference:
+        gaussian.rs:186-194). Raises IrreversibleConfigError for lossy
+        layouts, where the reference panics."""
+        return unpack(self.download_packed())
 
 
 class GaussianDisplayMode(IntEnum):
@@ -183,6 +301,28 @@ class GaussianTransform:
                 * np.float32(3.0)
             ),
         )
+
+
+# Flag accessors of GaussianTransform.flags, the analog of the WESL helpers
+# (reference: src/shader/gaussian_transform.wesl:14-31); csrc/gaussian.cuh
+# has their device counterparts. ``flags`` is an int or an integer tensor.
+
+
+def gaussian_transform_display_mode(flags):
+    return flags & 0xFF
+
+
+def gaussian_transform_sh_deg(flags):
+    return (flags >> 8) & 0xFF
+
+
+def gaussian_transform_no_sh0(flags):
+    return ((flags >> 16) & 0xFF) != 0
+
+
+def gaussian_transform_max_std_dev(flags) -> torch.Tensor:
+    return torch.as_tensor((flags >> 24) & 0xFF,
+                           dtype=torch.float32) / 255.0 * 3.0
 
 
 @dataclass(frozen=True)

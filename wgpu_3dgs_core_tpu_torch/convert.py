@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .buffer import GaussiansBuffer
 from .layouts import Cov3dFormat, GaussianLayout, PackedGaussians, ShFormat
 from .render.camera import Camera
 from .render.train import TrainableGaussians
@@ -56,6 +57,19 @@ def packed_to_tensors(layout: GaussianLayout, pos, color, sh, cov3d,
         color=to_tensor(color, device),
         sh=None if sh is None else to_tensor(sh, device),
         cov3d=to_tensor(cov3d, device),
+    )
+
+
+def buffer_from_packed(packed, device="cuda") -> GaussiansBuffer:
+    """A port GaussiansBuffer on ``device`` holding a JAX
+    ``PackedGaussians`` (numpy fields, e.g. the JAX buffer's
+    ``download_packed()``), values and dtypes unchanged."""
+    layout = layout_from_names(packed.layout.sh.value,
+                               packed.layout.cov3d.value)
+    return GaussiansBuffer(
+        packed_to_tensors(layout, packed.pos, packed.color, packed.sh,
+                          packed.cov3d, device),
+        device,
     )
 
 

@@ -1,7 +1,9 @@
 """Tile binning and the tile-scale work schedule.
 
-The counterpart of ``wgpu_3dgs_core_tpu.ops.binning`` for the forward
-path: exact two-level row-trimmed binning (:func:`bin_splats_attrs`:
+The counterpart of ``wgpu_3dgs_core_tpu.ops.binning``: the one-level bbox
+binning :func:`bin_splats` (K7 expansion, a stable (tile, depth) sort) and,
+for the render path, exact two-level row-trimmed binning
+(:func:`bin_splats_attrs`:
 K1 row expansion, exact per-row tile intervals, K2 fragment expansion,
 one stable 1-key tile sort, ``searchsorted`` tile ranges) and the
 tile-scale part of ``pad_schedule``, which keeps the JAX package's
@@ -25,8 +27,11 @@ from .expand import (
     TAB_CNT,
     RowStream,
     _check_limits,
+    _exclusive_cumsum,
     build_row_tables,
+    build_segment_table,
     build_tables,
+    expand_fragments,
     expand_fragments_with_attrs,
     expand_rows,
 )
@@ -81,9 +86,11 @@ def num_tiles(width: int, height: int) -> tuple[int, int]:
     return tx, ty
 
 
-def tile_bounds(xy, extent, tiles_x: int, tiles_y: int):
+def tile_bounds(xy, extent, tiles_x: int, tiles_y: int, tile_y_offset=0):
     """Per-gaussian tile bbox [x0, x1) x [y0, y1), clamped to the grid
-    (int32). Upper bounds are floor(edge / TILE) + 1."""
+    (int32). Upper bounds are floor(edge / TILE) + 1. ``tile_y_offset``
+    shifts into the ``tiles_y``-row strip starting at that global tile
+    row."""
     rx = extent[:, 0]
     ry = extent[:, 1]
     x0 = torch.clamp((xy[:, 0] - rx) / TILE_SIZE, 0, tiles_x).to(torch.int32)
@@ -92,9 +99,83 @@ def tile_bounds(xy, extent, tiles_x: int, tiles_y: int):
     ).to(torch.int32)
     y0g = torch.floor((xy[:, 1] - ry) / TILE_SIZE).to(torch.int32)
     y1g = (torch.floor((xy[:, 1] + ry) / TILE_SIZE) + 1).to(torch.int32)
+    if tile_y_offset:  # the render path bins the whole grid: no ops added
+        y0g, y1g = y0g - tile_y_offset, y1g - tile_y_offset
     y0 = torch.clamp(y0g, 0, tiles_y)
     y1 = torch.clamp(y1g, 0, tiles_y)
     return x0, y0, x1, y1
+
+
+def _bbox_counts(xy, extent, mask, tiles_x, tiles_y, tile_y_offset):
+    """(x0, y0, span_x, bbox fragment count) per gaussian."""
+    x0, y0, x1, y1 = tile_bounds(xy, extent, tiles_x, tiles_y,
+                                 tile_y_offset)
+    span_x = torch.clamp_min(x1 - x0, 0)
+    span_y = torch.clamp_min(y1 - y0, 0)
+    live = mask & (extent[:, 0] > 0) & (extent[:, 1] > 0)
+    return x0, y0, span_x, torch.where(live, span_x * span_y, 0)
+
+
+def count_fragments(xy, extent, mask, tiles_x: int, tiles_y: int,
+                    tile_y_offset=0) -> torch.Tensor:
+    """Live fragment count of :func:`bin_splats` (bbox tiles), which
+    sizes its ``max_fragments``."""
+    return _bbox_counts(xy, extent, mask, tiles_x, tiles_y,
+                        tile_y_offset)[3].sum()
+
+
+def bbox_table(xy, extent, mask, tiles_x: int, tiles_y: int,
+               tile_y_offset=0):
+    """K7's input: the one-level table of every gaussian's bbox tiles (in
+    original order) and its live fragment count, a 0-d int32 tensor."""
+    x0, y0, span_x, counts = _bbox_counts(xy, extent, mask, tiles_x,
+                                          tiles_y, tile_y_offset)
+    counts = counts.to(torch.int32)
+    gid = torch.arange(xy.shape[0], dtype=torch.int32, device=xy.device)
+    table = build_segment_table(_exclusive_cumsum(counts), counts, span_x,
+                                x0, y0, gid)
+    return table, counts.sum(dtype=torch.int32)
+
+
+def bin_splats(xy, extent, depth, mask, tiles_x: int, tiles_y: int,
+               max_fragments: int, tile_y_offset=0) -> FragmentStream:
+    """One-level binning: every gaussian into every tile of its bbox, a
+    (tile, depth)-sorted stream of capacity ``max_fragments``.
+
+    With ``tile_y_offset``, bins only the ``tiles_y``-row strip starting at
+    that global tile row (local tile ids). K7 expands the table in
+    original gaussian order; two stable sorts, by depth and then by tile,
+    give the JAX package's stable 2-key (tile, depth) sort: ties go by
+    slot, i.e. by gaussian id. Masked gaussians have depth +inf. torch's
+    sort orders -0.0 and +0.0 as equal (ties by id) and NaN last, as
+    ``lax.sort`` does; the JAX package's scenes have depth > 0. There is
+    no ``expand_impl``: the device of the inputs is the only switch, and
+    any capacity works.
+    """
+    n = xy.shape[0]
+    _check_limits(n, tiles_x)
+    dev = xy.device
+    t_total = tiles_x * tiles_y
+    depth_key = torch.where(mask, depth, float("inf"))
+    table, total = bbox_table(xy, extent, mask, tiles_x, tiles_y,
+                              tile_y_offset)
+    tile, gid = expand_fragments(table, total, max_fragments, tiles_x,
+                                 t_total)  # K7
+    depth_frag = (depth_key[gid] if n else
+                  torch.zeros(max_fragments, dtype=depth.dtype, device=dev))
+    by_depth = torch.sort(depth_frag, stable=True).indices
+    perm = by_depth[torch.sort(tile[by_depth], stable=True).indices]
+    tile_sorted = tile[perm]
+    tile_ids = torch.arange(t_total, dtype=torch.int32, device=dev)
+    return FragmentStream(
+        gauss_id=gid[perm],
+        tile_id=tile_sorted,
+        num_fragments=torch.clamp_max(total, max_fragments),
+        overflow=total > max_fragments,
+        tile_start=torch.searchsorted(tile_sorted, tile_ids, out_int32=True),
+        tile_end=torch.searchsorted(tile_sorted, tile_ids, right=True,
+                                    out_int32=True),
+    )
 
 
 def exact_radii(conic, op_eff, cutoff_sq, opacity_cull):

@@ -8,9 +8,16 @@ of the sources and the compiler flags, so a checkout builds once and
 rebuilds only when a source changes. Nothing here runs at import:
 importing the package needs neither ``nvcc`` nor a card.
 
-Each kernel entry point is a :class:`CudaKernel`. It counts its own
-launches, so a run can show that it went through the kernel, and raises
-if the C side reports a CUDA error for the launch.
+Each kernel entry point is a :class:`CudaKernel`, a :class:`Launcher`
+bound to its symbol. A launcher counts its own launches, so a run can
+show that it went through the kernel, and raises if the C side reports a
+CUDA error for the launch.
+
+Kernel bundles (ops/kernel_bundle.py) generate one small source per
+dispatch signature; :func:`build_sources` compiles such sources, each into
+its own library under ``_build/bundles/<key>/``, keyed by a hash of the
+source, the headers it includes and the flags, all ``nvcc`` runs started
+together.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Sequence
 
 import torch
 
@@ -31,6 +39,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("expand.cu", "rasterize.cu", "segreduce.cu")
 HEADERS = ("common.cuh",)
+BUNDLE_HEADERS = ("common.cuh", "bundle.cuh", "gaussian.cuh")
+BUNDLE_DIR = BUILD_DIR / "bundles"
+BUNDLE_LIB = "libgs_bundle.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -113,7 +124,59 @@ def build() -> BuildInfo:
     return BuildInfo(lib, seconds, log)
 
 
+def bundle_key(source: str) -> str:
+    """The disk-cache key of a generated bundle source: everything that
+    changes what nvcc builds from it, and nothing else."""
+    h = hashlib.sha256(source.encode())
+    for name in BUNDLE_HEADERS:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_sources(sources: Sequence[str]) -> list[BuildInfo]:
+    """Build each generated CUDA source into its own shared library (with
+    ``-I csrc/``), reusing the ones this checkout has built; the missing
+    ones are compiled by one nvcc each, all started together. Returns one
+    BuildInfo per source, in order; ``seconds`` is the wall time of the
+    concurrent builds (0 for a reused library)."""
+    infos: dict[str, BuildInfo] = {}
+    jobs = []
+    tag = f"{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    for src in dict.fromkeys(sources):
+        out_dir = BUNDLE_DIR / bundle_key(src)
+        lib = out_dir / BUNDLE_LIB
+        log_path = out_dir / "nvcc.log"
+        if lib.is_file():
+            log = log_path.read_text() if log_path.is_file() else ""
+            infos[src] = BuildInfo(lib, 0.0, log)
+            continue
+        out_dir.mkdir(parents=True, exist_ok=True)
+        cu = out_dir / "bundle.cu"
+        cu_tmp = out_dir / f"bundle.cu.{tag}"
+        cu_tmp.write_text(src)
+        os.replace(cu_tmp, cu)
+        tmp = out_dir / f"{BUNDLE_LIB}.{tag}"
+        proc = subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(CSRC_DIR), "-o",
+             str(tmp), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, proc, tmp, lib, log_path))
+    logs = [proc.communicate()[0] for _, proc, *_ in jobs]  # wait for all
+    for (src, proc, tmp, lib, log_path), log in zip(jobs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {lib.parent / 'bundle.cu'}:\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, lib)  # atomic, as in build()
+        infos[src] = BuildInfo(lib, time.perf_counter() - t0, log)
+    return [infos[src] for src in sources]
+
+
 _library: ctypes.CDLL | None = None
+_bundle_libraries: dict[Path, ctypes.CDLL] = {}
 
 
 def library() -> ctypes.CDLL:
@@ -127,51 +190,80 @@ def library() -> ctypes.CDLL:
     return _library
 
 
+def bundle_library(path: Path) -> ctypes.CDLL:
+    """A built bundle library, loaded once per process."""
+    lib = _bundle_libraries.get(path)
+    if lib is None:
+        lib = ctypes.CDLL(str(path))
+        lib.gs_error_string.argtypes = [ctypes.c_int]
+        lib.gs_error_string.restype = ctypes.c_char_p
+        _bundle_libraries[path] = lib
+    return lib
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_longlong
 
 
-class CudaKernel:
-    """One C entry point of the kernel library and its launch count."""
+def bind(lib: ctypes.CDLL, symbol: str, argtypes: list):
+    """The C entry ``symbol`` of ``lib``, typed; the stream comes last."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes) + [P]
+    fn.restype = ctypes.c_int
+    return fn
 
-    registry: list["CudaKernel"] = []
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+class Launcher:
+    """A kernel's name in :func:`launch_counts` and its launch count."""
+
+    registry: list["Launcher"] = []
+
+    def __init__(self, name: str):
         self.name = name
-        self.symbol = symbol
-        self.argtypes = argtypes
         self.launches = 0
-        self._fn = None
-        CudaKernel.registry.append(self)
+        Launcher.registry.append(self)
 
-    def launch(self, *args, work: int, device: torch.device) -> None:
-        """Launch over ``work`` output slots on ``device``'s current
-        stream, with ``device`` current; every pointer argument is a
-        tensor's ``data_ptr()``. With no work there is no grid: nothing is
-        launched and nothing counted."""
+    def call(self, fn, lib: ctypes.CDLL, *args, work: int,
+             device: torch.device) -> None:
+        """Launch the bound C entry ``fn`` of ``lib`` over ``work`` output
+        slots on ``device``'s current stream, with ``device`` current;
+        every pointer argument is a tensor's ``data_ptr()``. With no work
+        there is no grid: nothing is launched and nothing counted."""
         if work <= 0:
             return
-        if self._fn is None:
-            fn = getattr(library(), self.symbol)
-            fn.argtypes = self.argtypes + [P]  # the stream comes last
-            fn.restype = ctypes.c_int
-            self._fn = fn
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = self._fn(*args, stream)
+            err = fn(*args, stream)
         if err != 0:
-            msg = library().gs_error_string(err).decode()
-            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+            msg = lib.gs_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
         self.launches += 1
 
 
+class CudaKernel(Launcher):
+    """One C entry point of the kernel library and its launch count."""
+
+    def __init__(self, name: str, symbol: str, argtypes: list):
+        super().__init__(name)
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self._fn = None
+
+    def launch(self, *args, work: int, device: torch.device) -> None:
+        """:meth:`Launcher.call` of this entry of the kernel library."""
+        if self._fn is None:
+            self._fn = bind(library(), self.symbol, self.argtypes)
+        self.call(self._fn, library(), *args, work=work, device=device)
+
+
 def launch_counts() -> dict[str, int]:
-    return {k.name: k.launches for k in CudaKernel.registry}
+    return {k.name: k.launches for k in Launcher.registry}
 
 
 def reset_launch_counts() -> None:
-    for k in CudaKernel.registry:
+    for k in Launcher.registry:
         k.launches = 0
 
 

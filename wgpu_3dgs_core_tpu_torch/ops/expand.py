@@ -1,4 +1,4 @@
-"""Two-level fragment expansion: kernels K1 (rows) and K2 (fragments).
+"""Fragment expansion: kernels K1 (rows), K2 (fragments) and K7 (bbox).
 
 The counterpart of ``wgpu_3dgs_core_tpu.ops.expand``. A segment table
 gives each of its rows a run of output slots; expansion writes, for every
@@ -10,9 +10,14 @@ slot, the owning row's fields and the slot's rank in the run:
 - K2, :func:`expand_fragments_with_attrs` (replaces
   ``_expand_attr_kernel``): tile rows -> fragments (tile id, gaussian id,
   attributes), over the per-row table (span == count).
+- K7, :func:`expand_fragments` (replaces ``_expand_kernel``): the
+  one-level expansion of ``binning.bin_splats``: gaussians -> (tile id,
+  gaussian id) over their whole tile bbox, K2 without attributes, over the
+  per-gaussian table of :func:`build_segment_table` (original order).
 
 Tables are native: int32 columns and an f32 attribute table, built by
-:func:`build_tables` / :func:`build_row_tables`. The TPU's base-256 digit
+:func:`build_tables` / :func:`build_row_tables` /
+:func:`build_segment_table`. The TPU's base-256 digit
 rows and bf16 splits are not carried over. On CUDA tensors the wrappers
 launch ``csrc/expand.cu``; on CPU tensors they run the plain versions
 (``searchsorted`` + gathers), which the kernels equal bit for bit.
@@ -200,19 +205,17 @@ def expand_rows(table: SegmentTable, total_rows: torch.Tensor,
 # -------------------------------------------------------------------- K2
 
 
-def expand_fragments_with_attrs_plain(table: SegmentTable,
-                                      total: torch.Tensor, f_cap: int,
-                                      tiles_x: int, t_total: int):
-    """Plain version of K2 (the spec the kernel equals bit for bit)."""
-    a = table.attrs.shape[0]
-    dev = table.ints.device
-    if table.ints.shape[1] == 0:
-        return (
-            torch.full((f_cap,), t_total, dtype=torch.int32, device=dev),
-            torch.zeros((f_cap,), dtype=torch.int32, device=dev),
-            torch.zeros((a + 1, f_cap), dtype=torch.float32, device=dev),
-        )
-    live, g, rank = _owner(table, f_cap, total)
+def _empty_tiles(cap: int, t_total: int, dev):
+    return (torch.full((cap,), t_total, dtype=torch.int32, device=dev),
+            torch.zeros((cap,), dtype=torch.int32, device=dev))
+
+
+def _slot_tiles(table: SegmentTable, total: torch.Tensor, cap: int,
+                tiles_x: int, t_total: int):
+    """The decode K2 and K7 share: (slot live?, owner row, tile, gid) of
+    every slot; tile = (y0 + dy) * tiles_x + x0 + dx with (dy, dx) =
+    divmod(rank, span). Slots at or past ``total`` get (t_total, 0)."""
+    live, g, rank = _owner(table, cap, total)
     t = table.ints[:, g]
     span = torch.clamp_min(t[TAB_SPAN], 1)
     dy = torch.div(rank, span, rounding_mode="floor")
@@ -220,6 +223,20 @@ def expand_fragments_with_attrs_plain(table: SegmentTable,
     tile = (t[TAB_Y0] + dy) * tiles_x + t[TAB_X0] + dx
     tile = torch.where(live, tile, t_total).to(torch.int32)
     gid = torch.where(live, t[TAB_GID], 0).to(torch.int32)
+    return live, g, tile, gid
+
+
+def expand_fragments_with_attrs_plain(table: SegmentTable,
+                                      total: torch.Tensor, f_cap: int,
+                                      tiles_x: int, t_total: int):
+    """Plain version of K2 (the spec the kernel equals bit for bit)."""
+    a = table.attrs.shape[0]
+    dev = table.ints.device
+    if table.ints.shape[1] == 0:
+        tile, gid = _empty_tiles(f_cap, t_total, dev)
+        return tile, gid, torch.zeros((a + 1, f_cap), dtype=torch.float32,
+                                      device=dev)
+    live, g, tile, gid = _slot_tiles(table, total, f_cap, tiles_x, t_total)
     attrs = torch.where(live[None, :], table.attrs[:, g], 0.0)
     attrs = torch.cat([attrs, gid.to(torch.float32)[None, :]], dim=0)
     return tile, gid, attrs
@@ -255,3 +272,62 @@ def expand_fragments_with_attrs(table: SegmentTable, total: torch.Tensor,
         attrs.data_ptr(), work=f_cap, device=dev,
     )
     return ints[0], ints[1], attrs
+
+
+# -------------------------------------------------------------------- K7
+
+
+def build_segment_table(offsets, counts, span_x, x0, y0, gid) -> SegmentTable:
+    """The one-level table of :func:`expand_fragments`, in ORIGINAL
+    gaussian order: the gaussians with a nonzero count first (a stable
+    sort of count == 0 compacts them in order), each with its exclusive
+    slot offset (``offsets``), then tail rows of count 0 at offset
+    ``total``. Native int32 columns and no attributes: the JAX package's
+    bf16 digit rows and pad guard columns are not carried over."""
+    n = counts.shape[0]
+    _check_limits(n)
+    dev = counts.device
+    order = torch.sort((counts == 0).to(torch.int32), stable=True).indices
+    cnt = counts[order].to(torch.int32)
+    tail = cnt == 0
+    total = counts.sum(dtype=torch.int32)
+    ints = torch.stack([
+        torch.where(tail, total, offsets[order].to(torch.int32)),
+        cnt,
+        *(c[order].to(torch.int32)
+          for c in (torch.clamp_min(span_x, 1), x0, y0, gid)),
+    ])
+    attrs = torch.zeros((0, n), dtype=torch.float32, device=dev)
+    return SegmentTable(ints.contiguous(), attrs)
+
+
+def expand_fragments_plain(table: SegmentTable, total: torch.Tensor,
+                           f_cap: int, tiles_x: int, t_total: int):
+    """Plain version of K7 (the spec the kernel equals bit for bit)."""
+    if table.ints.shape[1] == 0:
+        return _empty_tiles(f_cap, t_total, table.ints.device)
+    _, _, tile, gid = _slot_tiles(table, total, f_cap, tiles_x, t_total)
+    return tile, gid
+
+
+EXPAND_BBOX = CudaKernel(
+    "expand_fragments_bbox", "gs_expand_bbox", [P, I, P, I, I, I, P],
+)
+
+
+def expand_fragments(table: SegmentTable, total: torch.Tensor, f_cap: int,
+                     tiles_x: int, t_total: int):
+    """K7: expand the one-level table into ``tile`` and ``gid`` [f_cap]
+    int32, in original gaussian order; slots at or past ``total`` (a 0-d
+    int32 tensor on the table's device) get tile = t_total and gid 0."""
+    _check_table(table, total)
+    if on_cpu(table.ints, table.attrs, total):
+        return expand_fragments_plain(table, total, f_cap, tiles_x, t_total)
+    n = table.ints.shape[1]
+    dev = table.ints.device
+    out = torch.empty((2, f_cap), dtype=torch.int32, device=dev)
+    EXPAND_BBOX.launch(
+        table.ints.data_ptr(), n, total.data_ptr(), f_cap, tiles_x, t_total,
+        out.data_ptr(), work=f_cap, device=dev,
+    )
+    return out[0], out[1]

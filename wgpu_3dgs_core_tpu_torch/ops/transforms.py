@@ -104,6 +104,25 @@ def sigma6_to_mat3(sigma6: torch.Tensor) -> torch.Tensor:
     )
 
 
+_DIVISORS: dict[tuple, torch.Tensor] = {}
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, correctly rounded on every device. Divided by a Python
+    number, a CUDA tensor is multiplied by the divisor's rounded
+    reciprocal, which is 1 ulp off for some values (126 of the 256 u8
+    values over 255); a divisor tensor on x's device keeps the division
+    IEEE on the card too, as it is on the CPU and in csrc/gaussian.cuh.
+    The divisor tensor is made once per (value, dtype, device) and kept,
+    so a call adds no allocation or fill."""
+    key = (d, x.dtype, x.device)
+    div = _DIVISORS.get(key)
+    if div is None:
+        div = _DIVISORS[key] = torch.full((), d, dtype=x.dtype,
+                                          device=x.device)
+    return x / div
+
+
 def unpack_cov3d(cov3d: torch.Tensor, rot_scale: bool) -> torch.Tensor:
     """Packed cov3d (f32 quat+scale, or f32/f16 sigma6) -> f32 [...,6]
     (reference: src/shader/gaussian.wesl:80-149)."""
@@ -121,7 +140,7 @@ def unpack_sh(sh: torch.Tensor | None, n: int,
     if sh is None:
         return torch.zeros((n, 15, 3), dtype=torch.float32, device=device)
     if sh.dtype == torch.int8:
-        vals = torch.clamp_min(sh[..., :45].float() / 127.0, -1.0)
+        vals = torch.clamp_min(true_div(sh[..., :45].float(), 127.0), -1.0)
     else:
         vals = sh[..., :45].float()
     return vals.reshape(*sh.shape[:-1], 15, 3)
@@ -130,4 +149,62 @@ def unpack_sh(sh: torch.Tensor | None, n: int,
 def unpack_color(color: torch.Tensor) -> torch.Tensor:
     """u8 [...,4] RGBA -> f32 [...,4] in [0,1]
     (reference: src/shader/gaussian.wesl:24-26)."""
-    return color.float() / 255.0
+    return true_div(color.float(), 255.0)
+
+
+# Model transform (reference: src/shader/model_transform.wesl). pos, rot
+# and scale broadcast against each other and against the points.
+
+
+def _stack3(rows) -> torch.Tensor:
+    """A nested 3x3 (or 4x4) list of broadcastable tensors -> [..., r, c]."""
+    k = len(rows[0])
+    flat = torch.broadcast_tensors(*(e for r in rows for e in r))
+    return torch.stack([torch.stack(flat[i * k:(i + 1) * k], dim=-1)
+                        for i in range(len(rows))], dim=-2)
+
+
+def _model_sr_rows(rot: torch.Tensor, scale: torch.Tensor):
+    r = quat_rows(rot)
+    s = split_last(scale)
+    return [[r[i][j] * s[j] for j in range(3)] for i in range(3)]
+
+
+def model_scale_rot_mat(rot: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """SR = R diag(s) [..., 3, 3]
+    (reference: src/shader/model_transform.wesl:105-143)."""
+    return _stack3(_model_sr_rows(rot, scale))
+
+
+def model_transform_inv_sr_mat(rot: torch.Tensor,
+                               scale: torch.Tensor) -> torch.Tensor:
+    """(SR)^-1 = diag(1/s) R^T [..., 3, 3]
+    (reference: src/shader/model_transform.wesl:64-102)."""
+    r = quat_rows(rot)
+    s = split_last(scale)
+    return _stack3([[r[j][i] / s[i] for j in range(3)] for i in range(3)])
+
+
+def model_transform_mat(pos: torch.Tensor, rot: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """TRS model -> world matrix [..., 4, 4]
+    (reference: src/shader/model_transform.wesl:18-61)."""
+    sr = _model_sr_rows(rot, scale)
+    p = split_last(pos)
+    zero = torch.zeros_like(p[0])
+    rows = [sr[i] + [p[i]] for i in range(3)]
+    rows.append([zero, zero, zero, torch.ones_like(p[0])])
+    return _stack3(rows)
+
+
+def model_to_world(pos: torch.Tensor, rot: torch.Tensor,
+                   scale: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Model-space points p [..., 3] -> homogeneous world points [..., 4]:
+    M (p, 1), each row summed in index order (reference:
+    src/shader/model_transform.wesl:13-15)."""
+    m = model_transform_mat(pos, rot, scale)
+    x = split_last(p)
+    return torch.stack(torch.broadcast_tensors(*(
+        m[..., i, 0] * x[0] + m[..., i, 1] * x[1] + m[..., i, 2] * x[2]
+        + m[..., i, 3] for i in range(4))), dim=-1)
