@@ -57,12 +57,32 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     projection at 1920x1080 (capacity: count_fragments x 1.5 rounded up
     to 512), no overflow, every FragmentStream field equal to the same
     binning on the CPU, K7 bit for bit against its plain version, and
-    timed beside it.
+    timed beside it;
+13. K11, the live-bound launch probe (tools/probe_dyngrid.py): its three
+    launch forms (a capacity grid, a host readback, a device launch) write
+    x + 1 on the live prefix and leave the tail untouched, at 3 and 8 of 8
+    blocks of 1024 f32 and at 1,000 and 8,160 of 8,160 blocks of 256 f32,
+    each form timed at the latter;
+14. K10, the segment-sum levels (tools/bench_segsum.py) on the TPU tool's
+    synthetic stream (3,955,712 slots, 1M gaussians) and on phase 8's
+    backward stream, timed beside segment_reduce: s1_search, s2_gather and
+    K5 at 128 and 512 threads bit for bit against K5, every level within
+    1e-5 of its plain version;
+15. K9, the rasterizer levels (tools/bench_kernel_variants.py) on phase 4's
+    stream, timed: v5_full bit for bit against K3, every other level within
+    1e-5 of each tile's largest value of its plain version;
+16. the port bench (wgpu_3dgs_core_tpu_torch/bench.py) in-process, its
+    headline step and --full, each printing its JSON line, no overflow;
+17. bench-shape gradient parity (tools/grad_parity.py: 100,000 gaussians,
+    1920x1080, 256x256 crop) within 1e-4 normalized;
+18. the ELLIPSE repair: the bench scene in ELLIPSE mode at the capacities
+    measure_capacities gives that mode at headroom 1.0, no overflow.
 
-Then a JSON line of the kernels (launches on the training step, and for
-K7 and K8 on phases 11-12; errors, times, and the bound: the least time
-the card could take for the same work), the card's name and power limit
-from nvidia-smi, and last
+Then a JSON line of the kernels (launches on the training step, for K7 and
+K8 on phases 11-12, for K9-K11 on the tools' runs of phases 13-15; errors,
+times, and the bound: the least time the card could take for the same
+work; K9 and K10 take their full level's, K3's and K5's), the card's name
+and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero; so
 does a machine without a CUDA card. The run uses one card: the first that
 CUDA_VISIBLE_DEVICES names, else card 0.
@@ -106,14 +126,17 @@ from wgpu_3dgs_core_tpu_torch import (  # noqa: E402
     TrainableGaussians,
     launch_counts,
     make_train_step,
-    measure_max_fragments,
-    measure_max_rows,
+    measure_capacities,
     render,
     render_gaussians,
     render_reference,
     reset_launch_counts,
 )
+from wgpu_3dgs_core_tpu_torch import bench as port_bench  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.buffer import GaussianDisplayMode  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import cuda  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.ops import probe as pr  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.ops import variants as va  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import expand as ex  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import unpack_bundle as ub  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import rasterize as ra  # noqa: E402
@@ -144,6 +167,12 @@ from wgpu_3dgs_core_tpu_torch.render.renderer import (  # noqa: E402
     tile_local_stream,
     unpack_gaussians,
 )
+from wgpu_3dgs_core_tpu_torch.tools import (  # noqa: E402
+    bench_kernel_variants as k9,
+    bench_segsum as k10,
+    grad_parity,
+    probe_dyngrid as k11,
+)
 from wgpu_3dgs_core_tpu_torch.utils.numeric import cast_u8  # noqa: E402
 
 MID = dict(n=65_536, width=512, height=512, seed=0)
@@ -156,6 +185,9 @@ BENCH_SCENE = dict(half=(3.0, 1.8, 2.0), scales=(0.004, 0.012))
 ROWTRIM_SCENE = dict(half=(1.5, 1.0, 1.0), scales=(0.01, 0.08))
 BG = (0.1, 0.2, 0.3)
 K3_TOL = 3e-5
+# K9's stripped levels against their plain versions, relative to each
+# tile's largest value: the same f32 alpha decisions, sums in another order.
+K9_TOL = 1e-5
 SLICE_TOL = 1e-4
 # Backward bars, each relative to the largest value of the row or
 # parameter compared (tests/test_render.py's gradient bar): K4 and the
@@ -177,6 +209,12 @@ REPS = 20
 # Phase 11's model transform (tests/test_torch_ops.py's).
 MODEL = ModelTransform(pos=(0.3, -0.2, 0.5), rot=(0.1, 0.2, 0.3, 0.927),
                        scale=(1.2, 0.8, 1.1))
+# Phase 14's synthetic stream (the TPU tool's: slots, gaussians, seed),
+# phase 16's extra arguments of the port bench (none: its defaults), and
+# phase 17's bench-shape gradient parity.
+SEGSUM_SYNTHETIC = (3_955_712, 1_000_000, 0)
+PORT_BENCH_ARGS: list[str] = []
+GRAD_PARITY = dict(gaussians=100_000, width=1920, height=1080, crop=256)
 PROFILE_FWD = 10  # forwards (or training steps) per profile measurement
 ADAM_STEPS = 3
 LEARNING_RATE = 5e-3  # fit()'s default
@@ -388,12 +426,13 @@ def compare_k3(inp, tiles=None) -> float:
 
 
 def phase_build(bundle_sources):
-    """The kernel library and the bundle sources, every nvcc started
-    together (the library's in one thread, the bundles' in another)."""
-    with ThreadPoolExecutor(2) as pool:
+    """The kernel library, the bundle sources and K11's relocatable
+    library, every nvcc started together (one thread each)."""
+    with ThreadPoolExecutor(3) as pool:
         lib = pool.submit(cuda.build)
         bundles = pool.submit(cuda.build_sources, bundle_sources)
-        info, infos = lib.result(), bundles.result()
+        probe = pool.submit(pr.build)
+        info, infos, pinfo = lib.result(), bundles.result(), probe.result()
     cuda.library()
     regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
     bregs = sorted({int(ln.split("Used ")[1].split(" registers")[0])
@@ -402,7 +441,8 @@ def phase_build(bundle_sources):
     print(f"phase 1 build: {info.seconds:.1f} s nvcc sm_90a -> "
           f"{info.path.name}; ptxas: {' | '.join(regs)}; "
           f"{len(set(bundle_sources))} bundle sources in "
-          f"{max(b.seconds for b in infos):.1f} s (registers {bregs})",
+          f"{max(b.seconds for b in infos):.1f} s (registers {bregs}); "
+          f"K11 relocatable (-rdc, cudadevrt) in {pinfo.seconds:.1f} s",
           flush=True)
 
 
@@ -415,8 +455,7 @@ def mid_scene(device):
     cam = Camera.look_at(eye=(0.0, 0.0, -6.0), target=(0.0, 0.0, 0.0),
                          width=cfg["width"], height=cfg["height"], fov_y=0.9)
     args = unpack_gaussians(buf.data)
-    caps = (measure_max_fragments(args[0], args[1], args[3], cam),
-            measure_max_rows(args[0], args[1], args[3], cam))
+    caps = measure_capacities(args[0], args[1], args[3], cam)
     return cam, args, caps, kernel_inputs(args, cam, *caps, pad_slack=1.0)
 
 
@@ -464,11 +503,10 @@ def bench_scene(device):
     cam = Camera.look_at(eye=(0.0, 0.0, -6.0), target=(0.0, 0.0, 0.0),
                          width=cfg["width"], height=cfg["height"], fov_y=0.9)
     args = unpack_gaussians(buf.data)
-    kw = dict(background=(0.0, 0.0, 0.0),
-              max_fragments=measure_max_fragments(args[0], args[1], args[3],
-                                                  cam),
-              max_rows=measure_max_rows(args[0], args[1], args[3], cam),
-              pad_slack=0.65)
+    max_fragments, max_rows = measure_capacities(args[0], args[1], args[3],
+                                                 cam)
+    kw = dict(background=(0.0, 0.0, 0.0), max_fragments=max_fragments,
+              max_rows=max_rows, pad_slack=0.65)
     return soa, buf, cam, args, kw
 
 
@@ -734,20 +772,12 @@ def library_calls(bi):
     """The one PyTorch call computing K5's function (segment_reduce over
     the drawn slots, their gradient rows gathered in key order first) and
     K6's (index_copy_ onto zeros), on the same inputs."""
-    keys, perm, dfrag, gid_col, n = bi["k5"]
-    comp = bi["k6"][0]
-    lo = torch.searchsorted(keys, gid_col)
-    hi = torch.searchsorted(keys, gid_col, right=True)
-    lengths = torch.where(gid_col < n, hi - lo, 0)
-    drawn = int(lengths.sum())
-    data = dfrag[:, perm[:drawn]].T.contiguous()
+    n = bi["k5"][4]
+    comp, gid_col = bi["k6"][0], bi["k5"][3]
     n_live = int((gid_col < n).sum())
     live_gids = gid_col[:n_live].long()
     live_comp = comp[:, :n_live]
-
-    def k5():
-        return torch.segment_reduce(data, "sum", lengths=lengths, axis=0,
-                                    unsafe=True)
+    k5 = k10.segment_reduce_call(*bi["k5"])
 
     def k6():
         return torch.zeros((sr.GRAD_ROWS, n), device=comp.device).index_copy_(
@@ -790,11 +820,8 @@ def phase_train(device, scene, inp, fwd_ms, errs):
     # Three Adam steps of make_train_step at the same size.
     params = TrainableGaussians.from_soa(soa, device)
     means, cov6, _, opacity, _ = params.constrained()
-    caps = dict(
-        max_fragments=measure_max_fragments(means, cov6, opacity, cam,
-                                            headroom=FIT_HEADROOM),
-        max_rows=measure_max_rows(means, cov6, opacity, cam,
-                                  headroom=FIT_HEADROOM))
+    caps = dict(zip(("max_fragments", "max_rows"), measure_capacities(
+        means, cov6, opacity, cam, headroom=FIT_HEADROOM)))
     opt = torch.optim.Adam(params.parameters(), lr=LEARNING_RATE)
     target = torch.zeros((cfg["height"], cfg["width"], 3), device=device)
     train_step = make_train_step(cam, target, opt, sh_deg=3,
@@ -1230,6 +1257,201 @@ def phase_binning(device, mid, scene):
     return launches, err, ms, k7_bound
 
 
+# ------------------------------- phases 13-18: the measurement path
+
+
+def tile_err(got, want) -> float:
+    """max over tiles of max |got - want| / max |want| over the tile's
+    [4, 256] (tiles of zeros compare absolutely)."""
+    err = (got - want).abs().amax(dim=(1, 2))
+    scale = want.abs().amax(dim=(1, 2))
+    return float(torch.where(scale > 0, err / scale, err).max())
+
+
+def phase_probe(device):
+    """K11 through the probe tool (every form checked at the TPU probe's
+    and the rasterizer's shapes, and timed at the latter: the path whose
+    launches the kernels line reports), then its plain version timed."""
+    torch.cuda.synchronize(device)
+    reset_launch_counts()
+    result = k11.run(device)
+    torch.cuda.synchronize(device)
+    launches = launch_counts()["probe_dyngrid"]
+    if launches < 1:
+        fail("K11 did not run on the probe's path")
+    cap, block_elems, lives = k11.RASTER_CASE
+    live = lives[-1]
+    x = torch.rand(cap * block_elems, device=device)
+    count = torch.tensor([live], dtype=torch.int32, device=device)
+    out = torch.full_like(x, k11.SENTINEL)
+    plain_ms = cuda_ms(lambda: pr.probe_plain(x, out, count, block_elems),
+                       reps=REPS)
+    ms = result["ms"]
+    probe_bound = bound(8 * live * block_elems, 0)
+    print(f"phase 13 K11 live-bound launch (x + 1 over blocks, the count in "
+          f"a device int32): forms {', '.join(pr.FORMS)} equal to the plain "
+          f"version (prefix x + 1, tail untouched) at live blocks "
+          f"{', '.join(result['checked'])}; {launches} launches; ms at "
+          f"{cap} blocks of {block_elems} f32: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + "; device kernel ms (profiler) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in result["device_ms"].items()
+                      if v is not None)
+          + f"; plain at {live} live {plain_ms:.4f} ms; bound "
+          f"{probe_bound[0]:.4f} ms (8 B per live element)", flush=True)
+    # The kernels line holds the capacity form's own time at full live (the
+    # profiler's: back to back, the host paces a 5 us kernel).
+    return (launches, result["max_abs_err"],
+            (result["device_ms"][f"capacity_{live}"], plain_ms, None),
+            probe_bound)
+
+
+def phase_segsum_variants(device, bi):
+    """K10's levels through the tool on the TPU tool's synthetic stream and
+    on the bench step's backward stream (phase 8's), then each level held
+    to its plain version (1e-5 of the row's largest sum) and s1, s2 and
+    the block-size levels to K5 bit for bit."""
+    streams = (("synthetic", k10.synthetic_stream(*SEGSUM_SYNTHETIC,
+                                                  device=device)),
+               ("bench step", bi["k5"]))
+    torch.cuda.synchronize(device)
+    reset_launch_counts()
+    results = {name: k10.run(*st) for name, st in streams}
+    torch.cuda.synchronize(device)
+    launches = launch_counts()["segment_sum_variants"]
+    if launches < 1:
+        fail("K10 did not run on the variant bench's path")
+    err = 0.0
+    for name, st in streams:
+        keys, perm, grad, gid_col, n = st
+        k5 = sr.segment_sums_sorted(*st)
+        for level in va.SEGSUM_LEVELS:
+            operand = va.level_operand(level, grad, perm)
+            got = va.segment_sums_level(level, keys, perm, operand, gid_col,
+                                        n)
+            want = va.segment_sums_level_plain(level, keys, perm, operand,
+                                               gid_col, n)
+            err = max(err, abs_err(got, want))
+            norm = normalized_err(got, want)
+            if not norm <= K5_TOL:
+                fail(f"K10 {level} on the {name} stream differs from its "
+                     f"plain version by {norm}")
+            if level != "s0_stream" and not equal_bits(got, k5):
+                fail(f"K10 {level} on the {name} stream differs from K5")
+    plain_ms = cuda_ms(
+        lambda: va.segment_sums_level_plain("s2_gather", *bi["k5"]))
+    for name, res in results.items():
+        print(f"phase 14 K10 segment-sum levels ({name} stream, "
+              f"{res['f']} slots, {res['rows']} rows): "
+              + ", ".join(f"{k} {v['ms']:.4f} ms {v['us_per_row']:.5f} "
+                          f"us/row" for k, v in res["levels"].items())
+              + f"; segment_reduce {res['segment_reduce_ms']:.4f} ms",
+              flush=True)
+    print(f"phase 14 K10 checks: every level within {K5_TOL} of its plain "
+          f"version (max abs err {err:.3g}), s1_search, s2_gather, "
+          f"prod_b128, prod_b512 bit-identical to K5 on both streams; "
+          f"{launches} launches; bench-step s2_gather plain {plain_ms:.3f} "
+          f"ms", flush=True)
+    res = results["bench step"]
+    return (launches, err, (res["levels"]["s2_gather"]["ms"], plain_ms,
+                            res["segment_reduce_ms"]))
+
+
+def phase_raster_variants(device, inp):
+    """K9's levels through the tool on phase 4's bench stream, then
+    v5_full held to K3 bit for bit and every other level to its plain
+    version within K9_TOL of each tile's largest value."""
+    k3_args = inp["k3"]
+    torch.cuda.synchronize(device)
+    reset_launch_counts()
+    result = k9.run(*k3_args[:4], cutoff_sq=k3_args[4], mode=k3_args[5])
+    torch.cuda.synchronize(device)
+    launches = launch_counts()["rasterize_variants"]
+    if launches < 1:
+        fail("K9 did not run on the variant bench's path")
+    k3 = ra.rasterize_tiles_fwd(*k3_args)
+    errs, norms = {}, {}
+    for level in va.RASTER_LEVELS:
+        got = va.rasterize_level(level, *k3_args)
+        if not torch.isfinite(got).all():
+            fail(f"K9 {level} output is not finite")
+        want = va.rasterize_level_plain(level, *k3_args)
+        errs[level] = abs_err(got, want)
+        norms[level] = tile_err(got, want)
+        if level == "v5_full":
+            if not equal_bits(got, k3):
+                fail("K9 v5_full differs from K3")
+        elif not norms[level] <= K9_TOL:
+            fail(f"K9 {level} differs from its plain version by "
+                 f"{norms[level]} of the tile's largest value")
+    v4_k3 = equal_bits(va.rasterize_level("v4_color", *k3_args), k3)
+    plain_ms = cuda_ms(lambda: va.rasterize_level_plain("v5_full", *k3_args),
+                       iters=3)
+    n_t = result["tiles"]
+    print(f"phase 15 K9 rasterizer levels (bench stream, {n_t} tiles, "
+          f"{result['fragments']} fragments): "
+          + ", ".join(f"{k} {v['ms']:.4f} ms {v['us_per_tile']:.4f} us/tile"
+                      for k, v in result["levels"].items())
+          + f"; v5_full bit-identical to K3, v4_color bit-identical to K3: "
+          f"{v4_k3}; normalized err vs plain "
+          + ", ".join(f"{k} {v:.3g}" for k, v in norms.items())
+          + f" (tol {K9_TOL}; v5 held to K3; max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"); {launches} launches; v5 plain {plain_ms:.3f} ms",
+          flush=True)
+    # The kernels line holds the full level: its time, bound and error.
+    return (launches, errs["v5_full"],
+            (result["levels"]["v5_full"]["ms"], plain_ms, None))
+
+
+def phase_port_bench(device):
+    """The port bench in-process, its headline run and --full: each prints
+    its JSON line; every overflow flag must be false."""
+    args = ["--device", str(device), *PORT_BENCH_ARGS]
+    lines = [port_bench.main(args), port_bench.main(["--full", *args])]
+    for line in lines:
+        if line["overflow"] or line.get("heavy_overflow", False):
+            fail(f"the port bench overflowed its capacities: {line}")
+        if not np.isfinite(line["loss"]) or line["step_ms"] <= 0:
+            fail(f"the port bench's line is not a measurement: {line}")
+    full = lines[1]
+    print(f"phase 16 port bench: step {lines[0]['step_ms']} / "
+          f"{full['step_ms']} ms (headline, --full), fwd {full['fwd_ms']} ms, "
+          f"heavy step {full['heavy_step_ms']} ms, loss {full['loss']:.8g}, "
+          f"no overflow", flush=True)
+
+
+def phase_grad_parity(device):
+    out = grad_parity.run(**GRAD_PARITY, device=device)
+    print(json.dumps(out), flush=True)
+    if not out["pass_1e-4"]:
+        fail(f"bench-shape gradients differ from the reference's: {out}")
+    print(f"phase 17 bench-shape gradient parity ({out['n']} gaussians, "
+          f"{out['resolution']}, {out['crop']}x{out['crop']} crop): worst "
+          f"normalized err {out['worst_normalized_err']:.3g} (bar "
+          f"{grad_parity.BAR})", flush=True)
+
+
+def phase_ellipse(scene):
+    """ELLIPSE capacities: measured for the mode's binning (its whole flat
+    ring, no opacity cull) at headroom 1.0, the bench scene renders
+    without overflow."""
+    _, _, cam, (means, cov6, color, opac, sh), _ = scene
+    splat = measure_capacities(means, cov6, opac, cam, headroom=1.0)
+    caps = measure_capacities(means, cov6, opac, cam, headroom=1.0,
+                              display_mode=GaussianDisplayMode.ELLIPSE)
+    res = render(means, cov6, color, opac, cam, sh=sh, sh_deg=3,
+                 display_mode=GaussianDisplayMode.ELLIPSE,
+                 max_fragments=caps[0], max_rows=caps[1])
+    if bool(res.overflow):
+        fail(f"the ELLIPSE render overflowed its measured capacities {caps}")
+    if not torch.isfinite(res.image).all():
+        fail("the ELLIPSE image is not finite")
+    print(f"phase 18 ELLIPSE capacities (bench scene, headroom 1.0): "
+          f"{caps[0]} fragments / {caps[1]} rows (SPLAT's {splat[0]} / "
+          f"{splat[1]}); render without overflow", flush=True)
+
+
 FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
 RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
                                     "uncompact")
@@ -1250,10 +1472,17 @@ KERNELS = (
      "wgpu_3dgs_core_tpu/ops/expand.py:191"),
     ("kernel_bundle", "wgpu_3dgs_core_tpu_torch/csrc/bundle.cuh",
      "wgpu_3dgs_core_tpu/ops/kernel_bundle.py:148"),
+    ("rasterize_variants", "wgpu_3dgs_core_tpu_torch/csrc/variants.cu",
+     "tools/bench_kernel_variants.py:228"),
+    ("segment_sum_variants", "wgpu_3dgs_core_tpu_torch/csrc/variants.cu",
+     "tools/bench_segsum.py:92"),
+    ("probe_dyngrid", "wgpu_3dgs_core_tpu_torch/csrc/probe_dyngrid.cu",
+     "tools/probe_dyngrid.py:17"),
 )
 
 
 def run(device: torch.device):
+    t0 = time.perf_counter()
     cases = bundle_cases(device)
     phase_build(bundle_sources(cases))
     mid = mid_scene(device)
@@ -1282,6 +1511,21 @@ def run(device: torch.device):
     (launches["expand_fragments_bbox"], errs["expand_fragments_bbox"],
      ms["expand_fragments_bbox"],
      bounds["expand_fragments_bbox"]) = phase_binning(device, mid, scene)
+    t12 = time.perf_counter()
+    (launches["probe_dyngrid"], errs["probe_dyngrid"], ms["probe_dyngrid"],
+     bounds["probe_dyngrid"]) = phase_probe(device)
+    (launches["segment_sum_variants"], errs["segment_sum_variants"],
+     ms["segment_sum_variants"]) = phase_segsum_variants(device, bi)
+    bounds["segment_sum_variants"] = bounds["segment_sums"]  # its full level
+    (launches["rasterize_variants"], errs["rasterize_variants"],
+     ms["rasterize_variants"]) = phase_raster_variants(device, inp)
+    bounds["rasterize_variants"] = bounds["rasterize_fwd"]
+    phase_port_bench(device)
+    phase_grad_parity(device)
+    phase_ellipse(scene)
+    t18 = time.perf_counter()
+    print(f"wall time: phases 1-12 {t12 - t0:.1f} s, phases 13-18 "
+          f"{t18 - t12:.1f} s", flush=True)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -2,7 +2,9 @@
 forward kernels K1-K3 and the backward kernels K4-K6 against their plain
 versions, launch counts, and the determinism of the backward; K7
 (one-level binning) and K8 (kernel bundles, the gaussian unpack of every
-layout) against their plain versions.
+layout) against their plain versions; the measurement path's K9
+(rasterizer levels: v5_full against K3), K10 (segment-sum levels:
+s2_gather against K5) and K11 (every live-bound launch form).
 
 These need a CUDA card and nvcc, and skip without one. On a machine with
 a card: ``python -m pytest -m cuda tests/test_torch_cuda.py``, with
@@ -26,6 +28,9 @@ from wgpu_3dgs_core_tpu_torch.ops.binning import (
 from wgpu_3dgs_core_tpu_torch.ops.projection import project
 from wgpu_3dgs_core_tpu_torch.ops.transforms import cov3d_from_rot_scale
 from wgpu_3dgs_core_tpu_torch.render.renderer import tile_local_stream
+from wgpu_3dgs_core_tpu_torch.ops import probe as K11
+from wgpu_3dgs_core_tpu_torch.ops import variants as KV
+from wgpu_3dgs_core_tpu_torch.tools.probe_dyngrid import SENTINEL
 
 pytestmark = pytest.mark.cuda
 
@@ -188,7 +193,9 @@ def test_render_on_card_matches_cpu_and_counts_launches(cuda):
                                  "rasterize_fwd": 1, "rasterize_bwd": 0,
                                  "segment_sums": 0, "uncompact": 0,
                                  "expand_fragments_bbox": 0,
-                                 "kernel_bundle": 0}
+                                 "kernel_bundle": 0, "rasterize_variants": 0,
+                                 "segment_sum_variants": 0,
+                                 "probe_dyngrid": 0}
     ref = T.render(*(a.cpu() for a in args), CAM, background=BG)
     assert not bool(res.overflow) and not bool(ref.overflow)
     err = float((res.image.cpu() - ref.image).abs().max())
@@ -280,3 +287,66 @@ def _check_unpack_bundle(cuda, layout):
         for a, b in zip(got, want):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         buf.update_range(1000, soa(700))
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_k9_v5_full_equals_k3(cuda, mode):
+    """K9's full level is K3 bit for bit; every other level is within 1e-5
+    of each tile's largest value of its plain version."""
+    spl, attr, tx, ty = _binned(cuda)
+    stream, attrs_sorted, _ = bin_splats_attrs(
+        spl.xy, spl.extent, spl.depth, spl.mask, attr, tx, ty, 8192,
+        opacity_cull=mode != 1,
+    )
+    sched = pad_schedule(stream, 8192 + tx * ty * 128)
+    frags = tile_local_stream(attrs_sorted, stream.tile_id, tx)
+    args = (frags, stream.tile_start, sched.draw_len, BG, 9.0, mode)
+    k3 = TR.rasterize_tiles_fwd(*args)
+    for level in KV.RASTER_LEVELS:
+        got = KV.rasterize_level(level, *args)
+        if level == "v5_full":
+            assert torch.equal(_bits(got), _bits(k3))
+            continue
+        want = KV.rasterize_level_plain(level, *args)
+        err = (got - want).abs().amax(dim=(1, 2))
+        scale = want.abs().amax(dim=(1, 2))
+        assert float(torch.where(scale > 0, err / scale, err).max()) <= 1e-5
+
+
+def test_k10_s2_gather_equals_k5(cuda):
+    """K10's s1_search, s2_gather and K5 at other block sizes equal K5 bit
+    for bit on the backward's own stream; every level is within 1e-5 of
+    its plain version."""
+    k4, (keys, perm, gid_col, n) = _backward_inputs(cuda, 0)
+    dfrag = TR.rasterize_tiles_bwd(*k4)
+    k5 = TS.segment_sums_sorted(keys, perm, dfrag, gid_col, n)
+    for level in KV.SEGSUM_LEVELS:
+        grad = KV.level_operand(level, dfrag, perm)
+        got = KV.segment_sums_level(level, keys, perm, grad, gid_col, n)
+        want = KV.segment_sums_level_plain(level, keys, perm, grad,
+                                            gid_col, n)
+        assert _normalized(got, want) <= 1e-5
+        if level != "s0_stream":
+            assert torch.equal(_bits(got), _bits(k5)), level
+
+
+@pytest.mark.parametrize("form", K11.FORMS)
+def test_k11_forms_write_the_live_prefix(cuda, form):
+    """Every launch form writes x + 1 on the live blocks and leaves the
+    rest of the output untouched, at the TPU probe's shape (3 and 8 of 8
+    blocks of 1024) and with more live blocks than the capacity."""
+    x = torch.rand(8 * 1024, device=cuda)
+    for live in (3, 8, 11):
+        count = torch.tensor([live], dtype=torch.int32, device=cuda)
+        before = K11.PROBE.launches
+        got = K11.probe(form, x, torch.full_like(x, SENTINEL), count,
+                        1024)
+        torch.cuda.synchronize()
+        assert K11.PROBE.launches == before + 1
+        k = min(live, 8) * 1024
+        assert torch.equal(got[:k], x[:k] + 1.0)
+        assert bool((got[k:] == SENTINEL).all())

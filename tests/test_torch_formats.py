@@ -160,7 +160,9 @@ def test_cpu_render_launches_no_kernel():
     counts = T.launch_counts()
     assert set(counts) == {"expand_rows", "expand_fragments", "rasterize_fwd",
                            "rasterize_bwd", "segment_sums", "uncompact",
-                           "expand_fragments_bbox", "kernel_bundle"}
+                           "expand_fragments_bbox", "kernel_bundle",
+                           "rasterize_variants", "segment_sum_variants",
+                           "probe_dyngrid"}
     assert not any(counts.values()), counts
 
 

@@ -4,7 +4,11 @@
 versions), against the JAX ``render`` (Pallas kernels in interpret mode)
 on the same numpy inputs: 3e-5 max abs on images (the JAX suite's bar,
 tests/test_render.py), 1e-4 on the alpha-0.99 opaque chain (its bar for
-that case). Overflow parity is in tests/test_torch_binning.py.
+that case). Overflow parity is in tests/test_torch_binning.py. Last, the
+port's measured capacities, which count what ``render`` bins in each
+display mode (a deliberate divergence: the JAX package's ``measure_*``
+count SPLAT's opacity-culled stream in every mode), and ``fit``'s single
+measuring projection.
 """
 
 import dataclasses
@@ -178,3 +182,75 @@ def test_render_tracks_grad_only_when_asked(scene30):
     with torch.no_grad():
         res = T.render(means, cov6, color, opac, CAM)
     assert res.image.grad_fn is None and not res.image.requires_grad
+
+
+def _faint_scene():
+    """4,000 faint gaussians (opacity 0.1, scales 0.05-0.12), seed 0, whose
+    ELLIPSE stream (the whole flat ring, no opacity cull) is longer than
+    the SPLAT stream the opacity cull trims."""
+    rng = np.random.default_rng(0)
+    n = 4000
+    means = rng.normal(size=(n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    scales = rng.uniform(0.05, 0.12, (n, 3)).astype(np.float32)
+    color = rng.random((n, 3)).astype(np.float32)
+    opac = np.full(n, 0.1, np.float32)
+    return gaussians_to_tensors(means, _cov6(q, scales), color, opac, None,
+                                device="cpu")[:4]
+
+
+def test_measured_capacities_follow_the_display_mode():
+    """At headroom 1.0 (counts rounded up only), each mode renders without
+    overflow at the capacities measured for it; SPLAT's are the counts the
+    parent measured for every mode, with which ELLIPSE overflowed."""
+    means, cov6, color, opac = _faint_scene()
+    cam = T.Camera.look_at(eye=(0.0, 0.0, -6.0), target=(0.0, 0.0, 0.0),
+                           width=160, height=96, fov_y=0.9)
+    splat = T.measure_capacities(means, cov6, opac, cam, headroom=1.0)
+    assert splat == (8960, 6144)
+    assert (T.measure_max_fragments(means, cov6, opac, cam, headroom=1.0),
+            T.measure_max_rows(means, cov6, opac, cam, headroom=1.0)) == splat
+    ellipse = T.measure_capacities(
+        means, cov6, opac, cam, headroom=1.0,
+        display_mode=T.GaussianDisplayMode.ELLIPSE)
+    assert ellipse[0] > splat[0]
+    for mode, caps, overflow in (
+        (T.GaussianDisplayMode.SPLAT, splat, False),
+        (T.GaussianDisplayMode.ELLIPSE, splat, True),
+        (T.GaussianDisplayMode.ELLIPSE, ellipse, False),
+    ):
+        res = T.render(means, cov6, color, opac, cam, display_mode=mode,
+                       max_fragments=caps[0], max_rows=caps[1])
+        assert bool(res.overflow) == overflow, (mode, caps)
+
+
+def test_fit_measures_with_one_projection(monkeypatch):
+    """``fit`` sizes both capacities from one projection pass, for the
+    display mode it renders in."""
+    from wgpu_3dgs_core_tpu_torch.render import renderer, train
+
+    calls = []
+    project = renderer.project
+    monkeypatch.setattr(renderer, "project",
+                        lambda *a, **kw: calls.append(kw) or project(*a,
+                                                                      **kw))
+    seen = {}
+    make_step = train.make_train_step
+
+    def spy(camera, target, opt, **kw):
+        seen.update(kw)
+        return make_step(camera, target, opt, **kw)
+
+    monkeypatch.setattr(train, "make_train_step", spy)
+    rng = np.random.default_rng(1)
+    soa = T.GaussianSoA(
+        rot=rng.normal(size=(50, 4)), pos=rng.normal(size=(50, 3)),
+        color=rng.integers(20, 230, (50, 4)), sh=np.zeros((50, 15, 3)),
+        scale=rng.uniform(0.05, 0.2, (50, 3)))
+    target = torch.zeros((48, 64, 3))
+    T.fit(soa, CAM, target, steps=0,
+          display_mode=T.GaussianDisplayMode.ELLIPSE)
+    assert len(calls) == 1 and calls[0]["opacity"] is None  # ELLIPSE's
+    assert seen["display_mode"] == T.GaussianDisplayMode.ELLIPSE
+    assert seen["max_fragments"] >= 1024 and seen["max_rows"] >= 1024

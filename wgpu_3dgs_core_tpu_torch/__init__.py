@@ -13,7 +13,11 @@ sums per gaussian and their scatter back to gaussian order
 bundle launcher (ops/kernel_bundle.py, with the device library
 csrc/gaussian.cuh; ops/unpack_bundle.py unpacks a GaussiansBuffer through
 it), and the one-level binning K7 (ops/expand.py, ops/binning.py
-bin_splats). On CPU tensors each runs its plain torch version.
+bin_splats). The measurement path adds K9 and K10, the rasterizer and
+the segment sums stripped level by level (ops/variants.py), and K11, a
+probe of launches bounded by a count on the device (ops/probe.py), which
+the tools (tools/) check and time. On CPU tensors each runs its plain
+torch version.
 Entry points run on the card unless they are given CPU tensors or
 ``device="cpu"``.
 """
@@ -53,6 +57,7 @@ from .render import (  # noqa: F401
     fit,
     l2_image_loss,
     make_train_step,
+    measure_capacities,
     measure_max_fragments,
     measure_max_rows,
     render,

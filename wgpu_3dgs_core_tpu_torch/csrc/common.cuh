@@ -34,3 +34,20 @@ __device__ __forceinline__ int gs_owner(const int* __restrict__ off, int n,
   }
   return lo - 1;
 }
+
+// First index in the ascending a[0, n) whose value is >= v (the device
+// form of torch.searchsorted(a, v)).
+__device__ __forceinline__ int gs_lower_bound(const int* __restrict__ a,
+                                              int n, int v) {
+  int lo = 0;
+  int hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(a + mid) < v) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}

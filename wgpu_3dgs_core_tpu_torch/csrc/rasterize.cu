@@ -38,8 +38,8 @@
 // broadcast). K3 lets a pixel stop once it saturates and the block stop at
 // the next batch once every pixel has (__syncthreads_count), so occluded
 // fragments of dense tiles are never read. K4 walks the same fragments in
-// the same order with the same T recurrence (frag_alpha below is shared,
-// so both kernels make the same blend decisions bit for bit). Each
+// the same order with the same T recurrence (frag_alpha of blend.cuh is
+// shared, so both kernels make the same blend decisions bit for bit). Each
 // fragment's 9 per-pixel terms are summed by a warp butterfly (skipped by
 // a vote when no lane of the warp blends the fragment), then the 8 warp
 // partials through shared memory in a fixed order: the gradients are
@@ -49,53 +49,14 @@
 // reads, flag words, group unroll, log-T carry and triangular-matmul
 // cumsums existed only for Mosaic and the MXU and are not carried over.
 
+#include "blend.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;  // threads per block, one per pixel
 constexpr int kWarps = kPix / 32;
-constexpr int kBatch = 256;          // K3 fragments staged per batch
 constexpr int kBwdBatch = 128;       // K4 fragments staged per batch
-constexpr int kRows = 9;             // x y conic_a conic_b conic_c r g b op
 constexpr int kTailSlots = 4096;     // K4 padding slots zeroed per block
-
-constexpr float kAlphaClamp = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTMin = 1e-4f;
-
-// One fragment at one pixel: alpha (clamped), its unclamped value, the
-// gaussian falloff exp(-q/2) (1 in ELLIPSE mode) and the pixel deltas.
-// Returns whether the fragment is kept there. q is written with the _rn
-// intrinsics, so no FMA contraction can make K3 and K4 round it apart.
-template <int kCols>
-__device__ __forceinline__ bool frag_alpha(float (*f)[kCols], int i,
-                                           float px, float py,
-                                           float cutoff_sq, float ring_lo,
-                                           int mode, float& alpha,
-                                           float& alpha_raw, float& g_exp,
-                                           float& dx, float& dy) {
-  dx = px - f[0][i];
-  dy = py - f[1][i];
-  const float q = __fadd_rn(
-      __fadd_rn(__fmul_rn(f[2][i], __fmul_rn(dx, dx)),
-                __fmul_rn(__fmul_rn(2.0f, f[3][i]), __fmul_rn(dx, dy))),
-      __fmul_rn(f[4][i], __fmul_rn(dy, dy)));
-  const float op = f[8][i];
-  bool ok;
-  if (mode == 1) {
-    g_exp = 1.0f;
-    alpha_raw = op;
-    ok = (q <= cutoff_sq) && (q >= ring_lo);
-  } else {
-    g_exp = expf(__fmul_rn(-0.5f, q));
-    alpha_raw = __fmul_rn(op, g_exp);
-    ok = q <= cutoff_sq;
-  }
-  alpha = fminf(alpha_raw, kAlphaClamp);
-  return ok && (alpha >= kAlphaMin);
-}
 
 __global__ void __launch_bounds__(kPix)
 rasterize_fwd_kernel(const float* __restrict__ frags, int f_stride,

@@ -38,22 +38,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRows = 9;
 
-// First index in the ascending a[0, n) whose value is >= v.
-__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
-                                           int v) {
-  int lo = 0;
-  int hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(a + mid) < v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
 __global__ void __launch_bounds__(kThreads)
 segment_sums_kernel(const int* __restrict__ keys,
                     const long long* __restrict__ perm,
@@ -69,8 +53,8 @@ segment_sums_kernel(const int* __restrict__ keys,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
   if (gid < n) {  // rows past the live ones hold the sentinel n
-    const int lo = lower_bound(keys, f, gid);
-    const int hi = lower_bound(keys, f, gid + 1);
+    const int lo = gs_lower_bound(keys, f, gid);
+    const int hi = gs_lower_bound(keys, f, gid + 1);
     for (int j = lo + lane; j < hi; j += 32) {
       const size_t src = static_cast<size_t>(__ldg(perm + j));
 #pragma unroll
@@ -97,7 +81,7 @@ uncompact_kernel(const float* __restrict__ comp,
                  float* __restrict__ out) {
   const int g = blockIdx.x * kThreads + threadIdx.x;
   if (g >= n) return;
-  const int row = lower_bound(gid_col, n_rows, g);
+  const int row = gs_lower_bound(gid_col, n_rows, g);
   const bool found = row < n_rows && __ldg(gid_col + row) == g;
   const size_t ns = static_cast<size_t>(n_rows);
   const size_t no = static_cast<size_t>(n);

@@ -1,3 +1,4 @@
+from . import probe, variants  # noqa: F401  (the K9-K11 launch counts)
 from .cuda import launch_counts, reset_launch_counts
 from .kernel_bundle import (
     DEFAULT_BLOCK_SIZE,

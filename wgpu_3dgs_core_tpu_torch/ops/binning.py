@@ -7,9 +7,9 @@ for the render path, exact two-level row-trimmed binning
 K1 row expansion, exact per-row tile intervals, K2 fragment expansion,
 one stable 1-key tile sort, ``searchsorted`` tile ranges) and the
 tile-scale part of ``pad_schedule``, which keeps the JAX package's
-capacity and overflow contract. The capacity dry passes
-(:func:`count_rows`, :func:`count_fragments_exact`) run the same f32
-arithmetic as the binning, so they count exactly what it emits.
+capacity and overflow contract. The capacity dry pass
+(:func:`count_capacities`) runs the same f32 arithmetic as the binning,
+so it counts exactly what it emits.
 """
 
 from __future__ import annotations
@@ -397,27 +397,22 @@ def pad_schedule(stream: FragmentStream, f_pad_cap: int) -> TileSchedule:
     )
 
 
-def count_rows(xy, extent, conic, op_eff, mask, tiles_x, tiles_y,
-               cutoff_sq: float = 9.0) -> torch.Tensor:
-    """Live (gaussian, tile-row) count, which sizes ``max_rows``: the
-    splat support, culled by opacity."""
-    _, _, _, _, span_x, span_y, live, _ = _exact_bounds(
-        xy, extent, conic, op_eff, mask, tiles_x, tiles_y, cutoff_sq, True,
-    )
-    return torch.where(live & (span_x > 0), span_y, 0).sum()
-
-
-def count_fragments_exact(xy, extent, conic, op_eff, mask, tiles_x,
-                          tiles_y, max_span_y: int,
-                          cutoff_sq: float = 9.0) -> torch.Tensor:
-    """Exact live count of the trimmed stream :func:`bin_splats_attrs`
-    emits for the splat support (same bounds and interval arithmetic on
-    the same f32 values). ``max_span_y`` must bound the tile row span."""
+def count_capacities(xy, extent, conic, op_eff, mask, tiles_x, tiles_y,
+                     cutoff_sq: float = 9.0, opacity_cull: bool = True):
+    """Exact live (gaussian, tile-row) and fragment counts of the stream
+    :func:`bin_splats_attrs` emits with the same ``opacity_cull``, which
+    size ``max_rows`` and ``max_fragments``: the same bounds and interval
+    arithmetic on the same f32 values. Returns two 0-d int64 tensors;
+    syncs with the device once, for the loop bound over tile rows."""
     x0, y0, _, _, span_x, span_y, live, ry_ex = _exact_bounds(
-        xy, extent, conic, op_eff, mask, tiles_x, tiles_y, cutoff_sq, True,
+        xy, extent, conic, op_eff, mask, tiles_x, tiles_y, cutoff_sq,
+        opacity_cull,
     )
     live = live & (span_x > 0)
+    row_counts = torch.where(live, span_y, 0)
+    rows = row_counts.sum()
     total = torch.zeros((), dtype=torch.int64, device=xy.device)
+    max_span_y = int(row_counts.max()) if row_counts.numel() else 0
     for r in range(max_span_y):
         has = live & (r < span_y)
         _, cnt = _row_tile_span(
@@ -425,13 +420,13 @@ def count_fragments_exact(xy, extent, conic, op_eff, mask, tiles_x,
             xy[:, 0], xy[:, 1], conic[:, 0], conic[:, 1], conic[:, 2],
         )
         total += torch.where(has, cnt, 0).sum()
-    return total
+    return rows, total
 
 
 def default_max_fragments(n: int, tiles_x: int, tiles_y: int) -> int:
     """Heuristic stream capacity, 8 tiles per gaussian rounded up to a
     lane multiple. Prefer a measured capacity (render/renderer.py
-    measure_max_fragments)."""
+    measure_capacities)."""
     cap = int(max(n * 8.0, 1024))
     cap = min(cap, n * tiles_x * tiles_y) if n else 1024
     return -(-cap // 256) * 256

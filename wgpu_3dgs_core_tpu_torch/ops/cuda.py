@@ -17,7 +17,9 @@ Kernel bundles (ops/kernel_bundle.py) generate one small source per
 dispatch signature; :func:`build_sources` compiles such sources, each into
 its own library under ``_build/bundles/<key>/``, keyed by a hash of the
 source, the headers it includes and the flags, all ``nvcc`` runs started
-together.
+together. With ``relocatable=True`` it builds a source that launches
+kernels from the device (``csrc/probe_dyngrid.cu``) the same way, with
+``-rdc=true`` and a device link against cudadevrt.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import time
@@ -37,8 +40,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("expand.cu", "rasterize.cu", "segreduce.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("expand.cu", "rasterize.cu", "segreduce.cu", "variants.cu")
+HEADERS = ("common.cuh", "blend.cuh")
 BUNDLE_HEADERS = ("common.cuh", "bundle.cuh", "gaussian.cuh")
 BUNDLE_DIR = BUILD_DIR / "bundles"
 BUNDLE_LIB = "libgs_bundle.so"
@@ -47,6 +50,11 @@ NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libgs_kernels.so"
+# A source that launches kernels from the device (dynamic parallelism) is
+# compiled relocatable and device-linked against cudadevrt, in a library
+# of its own, so the other libraries keep their whole-program build.
+RDC_FLAGS = ("-rdc=true",)
+DEVRT = "-lcudadevrt"
 
 
 @dataclass(frozen=True)
@@ -91,8 +99,8 @@ def build() -> BuildInfo:
     if lib.is_file():
         log = log_path.read_text() if log_path.is_file() else ""
         return BuildInfo(lib, 0.0, log)
-    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
     t0 = time.perf_counter()
@@ -124,7 +132,7 @@ def build() -> BuildInfo:
     return BuildInfo(lib, seconds, log)
 
 
-def bundle_key(source: str) -> str:
+def bundle_key(source: str, relocatable: bool = False) -> str:
     """The disk-cache key of a generated bundle source: everything that
     changes what nvcc builds from it, and nothing else."""
     h = hashlib.sha256(source.encode())
@@ -132,37 +140,61 @@ def bundle_key(source: str) -> str:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    if relocatable:
+        h.update(" ".join((*RDC_FLAGS, DEVRT)).encode())
     return h.hexdigest()[:16]
 
 
-def build_sources(sources: Sequence[str]) -> list[BuildInfo]:
+def _nvcc_shared(cu: Path, lib: Path, relocatable: bool) -> list[str]:
+    """The command that builds ``cu`` into the shared library ``lib``: one
+    nvcc, or for a relocatable source a compile, a device link against
+    cudadevrt and the host link, chained in one shell."""
+    nvcc = find_nvcc()
+    if not relocatable:
+        return [nvcc, *NVCC_FLAGS, "-shared", "-I", str(CSRC_DIR), "-o",
+                str(lib), str(cu)]
+    obj, dlink = lib.with_suffix(".o"), lib.with_suffix(".dlink.o")
+    steps = [
+        [nvcc, *NVCC_FLAGS, *RDC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+         str(obj), str(cu)],
+        [nvcc, *ARCH_FLAGS, "-Xcompiler", "-fPIC", "-dlink", "-o",
+         str(dlink), str(obj), DEVRT],
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib), str(obj), str(dlink),
+         DEVRT],
+    ]
+    return ["sh", "-c", " && ".join(map(shlex.join, steps))]
+
+
+def build_sources(sources: Sequence[str],
+                  relocatable: bool = False) -> list[BuildInfo]:
     """Build each generated CUDA source into its own shared library (with
     ``-I csrc/``), reusing the ones this checkout has built; the missing
     ones are compiled by one nvcc each, all started together. Returns one
     BuildInfo per source, in order; ``seconds`` is the wall time of the
-    concurrent builds (0 for a reused library)."""
+    concurrent builds (0 for a reused library). ``relocatable`` builds
+    sources that launch kernels from the device (see RDC_FLAGS)."""
     infos: dict[str, BuildInfo] = {}
     jobs = []
     tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
     for src in dict.fromkeys(sources):
-        out_dir = BUNDLE_DIR / bundle_key(src)
+        out_dir = BUNDLE_DIR / bundle_key(src, relocatable)
         lib = out_dir / BUNDLE_LIB
         log_path = out_dir / "nvcc.log"
         if lib.is_file():
             log = log_path.read_text() if log_path.is_file() else ""
             infos[src] = BuildInfo(lib, 0.0, log)
             continue
+        cmd = _nvcc_shared(out_dir / "bundle.cu",
+                           out_dir / f"{BUNDLE_LIB}.{tag}", relocatable)
         out_dir.mkdir(parents=True, exist_ok=True)
         cu = out_dir / "bundle.cu"
         cu_tmp = out_dir / f"bundle.cu.{tag}"
         cu_tmp.write_text(src)
         os.replace(cu_tmp, cu)
         tmp = out_dir / f"{BUNDLE_LIB}.{tag}"
-        proc = subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(CSRC_DIR), "-o",
-             str(tmp), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
         jobs.append((src, proc, tmp, lib, log_path))
     logs = [proc.communicate()[0] for _, proc, *_ in jobs]  # wait for all
     for (src, proc, tmp, lib, log_path), log in zip(jobs, logs):

@@ -2,6 +2,7 @@ from .camera import Camera
 from .reference import render_reference
 from .renderer import (
     RenderResult,
+    measure_capacities,
     measure_max_fragments,
     measure_max_rows,
     project_and_color,
@@ -15,6 +16,7 @@ __all__ = [
     "Camera",
     "render_reference",
     "RenderResult",
+    "measure_capacities",
     "measure_max_fragments",
     "measure_max_rows",
     "project_and_color",

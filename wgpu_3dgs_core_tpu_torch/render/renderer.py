@@ -31,13 +31,11 @@ from ..ops.binning import (
     CHUNK,
     TILE_SIZE,
     bin_splats_attrs,
-    count_fragments_exact,
-    count_rows,
+    count_capacities,
     default_max_fragments,
     num_tiles,
     pad_schedule,
     padded_capacity,
-    tile_bounds,
 )
 from ..ops.projection import project
 from ..ops.rasterize import (
@@ -72,15 +70,16 @@ class RenderResult(NamedTuple):
     overflow: torch.Tensor  # 0-d bool: a capacity was exceeded
 
 
-def project_and_color(
-    means, cov3d_sigma6, base_color, opacity, camera,
-    sh=None, sh_deg: int = 0, no_sh0: bool = False,
-    model_transform=None, size: float = 1.0, max_std_dev: float = 3.0,
+def project_splats(
+    means, cov3d_sigma6, opacity, camera, model_transform=None,
+    size: float = 1.0, max_std_dev: float = 3.0,
     display_mode: GaussianDisplayMode = GaussianDisplayMode.SPLAT,
     antialiased: bool = False,
 ):
-    """Shared render prologue: EWA projection + view-dependent color.
-    Returns (splats, rgb [N, 3], opacity' [N])."""
+    """The geometry :func:`render` bins: EWA projection (opacity-aware
+    extents in SPLAT mode only), POINT mode's fixed conic and extent, and
+    the opacity scaled by the antialias compensation. Returns (splats,
+    opacity' [N])."""
     splats = project(
         means, cov3d_sigma6, camera, model_transform,
         size=size, radius_cutoff=max_std_dev, antialiased=antialiased,
@@ -99,63 +98,70 @@ def project_and_color(
                 torch.zeros_like(splats.extent),
             ),
         )
+    return splats, opacity
+
+
+def project_and_color(
+    means, cov3d_sigma6, base_color, opacity, camera,
+    sh=None, sh_deg: int = 0, no_sh0: bool = False,
+    model_transform=None, size: float = 1.0, max_std_dev: float = 3.0,
+    display_mode: GaussianDisplayMode = GaussianDisplayMode.SPLAT,
+    antialiased: bool = False,
+):
+    """Shared render prologue: :func:`project_splats` + view-dependent
+    color. Returns (splats, rgb [N, 3], opacity' [N])."""
+    splats, opacity = project_splats(
+        means, cov3d_sigma6, opacity, camera, model_transform, size,
+        max_std_dev, display_mode, antialiased,
+    )
     rgb = gaussian_color(base_color, sh, view_dirs(means, camera), sh_deg,
                          no_sh0)
     return splats, rgb, opacity
 
 
 @torch.no_grad()
-def measure_max_fragments(
+def measure_capacities(
     means, cov3d_sigma6, opacity, camera: Camera,
     model_transform: Optional[tuple] = None, size: float = 1.0,
-    max_std_dev: float = 3.0, antialiased: bool = False,
-    headroom: float = CAPACITY_HEADROOM,
-) -> int:
-    """Measured ``max_fragments`` for a scene and camera: one N-scale dry
-    pass counting the trimmed stream exactly, times ``headroom``, rounded
-    up to 256 (at least 1024). Syncs with the device."""
+    max_std_dev: float = 3.0,
+    display_mode: GaussianDisplayMode = GaussianDisplayMode.SPLAT,
+    antialiased: bool = False, headroom: float = CAPACITY_HEADROOM,
+) -> tuple[int, int]:
+    """Measured (``max_fragments``, ``max_rows``) for a scene and camera:
+    one projection pass as :func:`render` makes it for ``display_mode``,
+    counting exactly the trimmed stream and row stream it bins (ELLIPSE
+    bins its whole flat ring, without the opacity cull), times
+    ``headroom``; fragments rounded up to 256 and rows to 512, each at
+    least 1024. Syncs with the device."""
     tiles_x, tiles_y = num_tiles(camera.width, camera.height)
-    splats = project(
-        means, cov3d_sigma6, camera, model_transform,
-        size=size, radius_cutoff=max_std_dev, antialiased=antialiased,
-        opacity=opacity,
+    splats, op = project_splats(
+        means, cov3d_sigma6, opacity, camera, model_transform, size,
+        max_std_dev, display_mode, antialiased,
     )
-    _, y0, _, y1 = tile_bounds(splats.xy, splats.extent, tiles_x, tiles_y)
-    max_sy = int(torch.clamp_min(y1 - y0, 0).max()) if len(y0) else 0
-    op_eff = opacity * splats.compensation * splats.mask
-    total = int(
-        count_fragments_exact(splats.xy, splats.extent, splats.conic,
-                              op_eff, splats.mask, tiles_x, tiles_y,
-                              max_span_y=max_sy,
-                              cutoff_sq=float(max_std_dev) ** 2)
+    rows, frags = count_capacities(
+        splats.xy, splats.extent, splats.conic, op * splats.mask,
+        splats.mask, tiles_x, tiles_y, cutoff_sq=float(max_std_dev) ** 2,
+        opacity_cull=display_mode != GaussianDisplayMode.ELLIPSE,
     )
-    cap = max(int(total * headroom), 1024)
-    return -(-cap // 256) * 256
+
+    def cap(total, align):
+        c = max(int(int(total) * headroom), 1024)
+        return -(-c // align) * align
+
+    return cap(frags, 256), cap(rows, 512)
 
 
-@torch.no_grad()
-def measure_max_rows(
-    means, cov3d_sigma6, opacity, camera: Camera,
-    model_transform: Optional[tuple] = None, size: float = 1.0,
-    max_std_dev: float = 3.0, antialiased: bool = False,
-    headroom: float = CAPACITY_HEADROOM,
-) -> int:
-    """Measured ``max_rows`` (the K1 row-stream capacity), the companion
-    of :func:`measure_max_fragments`, rounded up to 512."""
-    tiles_x, tiles_y = num_tiles(camera.width, camera.height)
-    splats = project(
-        means, cov3d_sigma6, camera, model_transform,
-        size=size, radius_cutoff=max_std_dev, antialiased=antialiased,
-        opacity=opacity,
-    )
-    op_eff = opacity * splats.compensation * splats.mask
-    total = int(
-        count_rows(splats.xy, splats.extent, splats.conic, op_eff,
-                   splats.mask, tiles_x, tiles_y,
-                   cutoff_sq=float(max_std_dev) ** 2)
-    )
-    cap = max(int(total * headroom), 1024)
-    return -(-cap // 512) * 512
+def measure_max_fragments(means, cov3d_sigma6, opacity, camera: Camera,
+                          **kw) -> int:
+    """The ``max_fragments`` of :func:`measure_capacities`."""
+    return measure_capacities(means, cov3d_sigma6, opacity, camera, **kw)[0]
+
+
+def measure_max_rows(means, cov3d_sigma6, opacity, camera: Camera,
+                     **kw) -> int:
+    """The ``max_rows`` (the K1 row-stream capacity) of
+    :func:`measure_capacities`."""
+    return measure_capacities(means, cov3d_sigma6, opacity, camera, **kw)[1]
 
 
 def tile_local_stream(attrs_sorted, tile_sorted, tiles_x: int):

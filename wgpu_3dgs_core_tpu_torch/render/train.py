@@ -21,11 +21,15 @@ from torch import nn
 from ..models.gaussian import GaussianSoA
 from ..ops.transforms import cov3d_from_rot_scale
 from .camera import Camera
-from .renderer import measure_max_fragments, measure_max_rows, render
+from .renderer import measure_capacities, render
 
 # Headroom of the capacities `fit` measures over the initial scene: room
 # for the parameters to drift during the fit, as in the JAX package.
 FIT_HEADROOM = 1.5
+# The render knobs that change what the binning emits, and so the
+# capacities `fit` measures.
+MEASURE_KNOBS = ("model_transform", "size", "max_std_dev", "display_mode",
+                 "antialiased")
 
 
 class TrainableGaussians(nn.Module):
@@ -157,16 +161,11 @@ def fit(
     opt = make_opt(params.parameters())
     if "max_fragments" not in kw:
         means, cov6, _, opacity, _ = params.constrained()
-        mkw = dict(
-            headroom=FIT_HEADROOM,
-            size=kw.get("size", 1.0),
-            max_std_dev=kw.get("max_std_dev", 3.0),
-            antialiased=kw.get("antialiased", False),
-        )
-        kw["max_fragments"] = measure_max_fragments(means, cov6, opacity,
-                                                    camera, **mkw)
-        kw.setdefault("max_rows", measure_max_rows(means, cov6, opacity,
-                                                   camera, **mkw))
+        knobs = {k: kw[k] for k in MEASURE_KNOBS if k in kw}
+        max_fragments, max_rows = measure_capacities(
+            means, cov6, opacity, camera, headroom=FIT_HEADROOM, **knobs)
+        kw["max_fragments"] = max_fragments
+        kw.setdefault("max_rows", max_rows)
     step = make_train_step(camera, target, opt, **kw)
 
     losses: list[float] = []
