@@ -22,8 +22,11 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    forward (count, time, time by kind);
 6. hold each backward kernel against its plain version on the mid scene
    with a random cotangent: K4 within 1e-4 of the largest gradient of its
-   row, K5 within 1e-5 of the largest sum of its row, K6 bit for bit; two
-   backward passes of the slice give bit-identical gradients;
+   row, K5 within 1e-5 of the largest sum of its row, K6 bit for bit; K5
+   on the seven streams its design finds hard (tools/bench_segsum.py::
+   hard_streams) within 1e-5, zeros in the rows no run reaches, two
+   launches bit-identical; two backward passes of the slice give
+   bit-identical gradients;
 7. hold the slice's gradients (means, quats, scales, colour, opacity, sh;
    loss sum((image - target)^2)) against autograd of render_reference on
    the card, on the spec scene, within 1e-4 of each parameter's largest
@@ -65,9 +68,12 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     each form timed at the latter;
 14. K10, the segment-sum levels (tools/bench_segsum.py) on the TPU tool's
     synthetic stream (3,955,712 slots, 1M gaussians) and on phase 8's
-    backward stream, timed beside segment_reduce: s1_search, s2_gather and
-    K5 at 128 and 512 threads bit for bit against K5, every level within
-    1e-5 of its plain version;
+    backward stream, timed beside segment_reduce. K10 keeps K5's old
+    design (a warp per row): s1_search, s2_gather and its 128- and
+    512-thread forms bit for bit against each other, s2_gather within
+    1e-5 of K5, every level and K5 within 1e-5 of their plain versions;
+    then K5, s2_gather and segment_reduce timed in turns on the bench-step
+    stream;
 15. K9, the rasterizer levels (tools/bench_kernel_variants.py) on phase 4's
     stream, timed: v5_full bit for bit against K3, every other level within
     1e-5 of each tile's largest value of its plain version;
@@ -202,9 +208,10 @@ GRAD_TOL = 1e-4
 SIGMA_TOL = 1e-6
 BUNDLE_N = 66_773  # phase 10's items: not a multiple of any block size
 MAP_ADD_N = 1 << 24  # phase 11's map_add beside torch.add
-# Back-to-back calls per timing sample of K7, K8 and their yardsticks: a
-# bundle dispatch's Python enqueue (phase 11 prints it) is as long as a
-# short map's kernel.
+# Back-to-back calls per timing sample of K7, K8 and their yardsticks, and
+# of phase 14's K5 beside its old design and segment_reduce: a bundle
+# dispatch's Python enqueue (phase 11 prints it) is as long as a short
+# map's kernel, and K5's wrapper allocates its scratch before launching.
 REPS = 20
 # Phase 11's model transform (tests/test_torch_ops.py's).
 MODEL = ModelTransform(pos=(0.3, -0.2, 0.5), rot=(0.1, 0.2, 0.3, 0.927),
@@ -233,6 +240,7 @@ EVAL_FLOPS, K3_BLEND_FLOPS, K4_BLEND_FLOPS = 20, 9, 47
 KERNEL_KINDS = (
     ("K3 rasterize_fwd", "rasterize_fwd_kernel"),
     ("K4 rasterize_bwd", "rasterize_bwd_kernel"),
+    ("K5 prep", "segment_sums_prep_kernel"),
     ("K5 segment_sums", "segment_sums_kernel"),
     ("K6 uncompact", "uncompact_kernel"),
     ("K2 expand_fragments", "expand_fragments_kernel"),
@@ -632,10 +640,35 @@ def grads_of(args, cam, target, **kw):
     return torch.autograd.grad(loss, args)
 
 
+def k5_hard_streams(device):
+    """K5 on the streams its design finds hard (tools/bench_segsum.py::
+    hard_streams): within K5_TOL of its plain version, exact zeros in the
+    rows no run reaches, the same bits from two launches. Returns the max
+    abs and normalized errors."""
+    err = norm = 0.0
+    for name, st in k10.hard_streams(device=device).items():
+        keys, _, _, gid_col, n = st
+        got = sr.segment_sums_sorted(*st)
+        again = sr.segment_sums_sorted(*st)
+        want = sr.segment_sums_sorted_plain(*st)
+        n5 = normalized_err(got, want)
+        if not n5 <= K5_TOL:
+            fail(f"K5 on the {name} stream differs from its plain version "
+                 f"by {n5}")
+        if got[:, ~torch.isin(gid_col, keys[keys < n])].any():
+            fail(f"K5 on the {name} stream wrote a row no run reaches")
+        if not equal_bits(got, again):
+            fail(f"two K5 launches on the {name} stream differ")
+        err, norm = max(err, abs_err(got, want)), max(norm, n5)
+    return err, norm
+
+
 def phase_backward_kernels(device, mid):
     cfg = MID
     cam, args, caps, inp = mid
     errs, (n4, n5) = compare_backward(backward_inputs(inp))
+    hard_err, hard_norm = k5_hard_streams(device)
+    errs = (errs[0], max(errs[1], hard_err), errs[2])
 
     # Two backward passes of the whole slice, bit for bit.
     x = leaves(args)
@@ -651,7 +684,9 @@ def phase_backward_kernels(device, mid):
           f"{cfg['width']}x{cfg['height']}, {int(inp['total'])} fragments, "
           f"random cotangent): K4 max abs err {errs[0]:.3g}, normalized "
           f"{n4:.3g} (tol {K4_TOL}); K5 max abs err {errs[1]:.3g}, "
-          f"normalized {n5:.3g} (tol {K5_TOL}); K6 bit-identical; two "
+          f"normalized {n5:.3g} (tol {K5_TOL}), on the "
+          f"{len(k10.HARD_STREAMS)} hard streams {hard_norm:.3g}, unreached "
+          f"rows zero, two launches bit-identical; K6 bit-identical; two "
           f"backward passes bit-identical", flush=True)
     return errs
 
@@ -1306,11 +1341,15 @@ def phase_probe(device):
             probe_bound)
 
 
-def phase_segsum_variants(device, bi):
+def phase_segsum_variants(device, bi, bound5):
     """K10's levels through the tool on the TPU tool's synthetic stream and
-    on the bench step's backward stream (phase 8's), then each level held
-    to its plain version (1e-5 of the row's largest sum) and s1, s2 and
-    the block-size levels to K5 bit for bit."""
+    on the bench step's backward stream (phase 8's). K10 keeps K5's old
+    design (a warp per row): each level is held to its plain version
+    (1e-5 of the row's largest sum), s1, s2 and the block-size levels to
+    each other bit for bit, and s2 to K5 within the same 1e-5 (K5 sums in
+    another order); K5 to its plain version on both streams. Then K5,
+    s2_gather and segment_reduce timed in turns on the bench-step
+    stream."""
     streams = (("synthetic", k10.synthetic_stream(*SEGSUM_SYNTHETIC,
                                                   device=device)),
                ("bench step", bi["k5"]))
@@ -1321,10 +1360,10 @@ def phase_segsum_variants(device, bi):
     launches = launch_counts()["segment_sum_variants"]
     if launches < 1:
         fail("K10 did not run on the variant bench's path")
-    err = 0.0
+    err = k5_norm = k5_plain = 0.0
     for name, st in streams:
         keys, perm, grad, gid_col, n = st
-        k5 = sr.segment_sums_sorted(*st)
+        old = {}
         for level in va.SEGSUM_LEVELS:
             operand = va.level_operand(level, grad, perm)
             got = va.segment_sums_level(level, keys, perm, operand, gid_col,
@@ -1336,8 +1375,23 @@ def phase_segsum_variants(device, bi):
             if not norm <= K5_TOL:
                 fail(f"K10 {level} on the {name} stream differs from its "
                      f"plain version by {norm}")
-            if level != "s0_stream" and not equal_bits(got, k5):
-                fail(f"K10 {level} on the {name} stream differs from K5")
+            if level != "s0_stream":
+                old[level] = got
+        for level, got in old.items():
+            if not equal_bits(got, old["s2_gather"]):
+                fail(f"K10 {level} on the {name} stream differs from "
+                     f"s2_gather")
+        k5 = sr.segment_sums_sorted(*st)
+        norm = normalized_err(k5, sr.segment_sums_sorted_plain(*st))
+        if not norm <= K5_TOL:
+            fail(f"K5 on the {name} stream differs from its plain version "
+                 f"by {norm}")
+        k5_plain = max(k5_plain, norm)
+        norm = normalized_err(old["s2_gather"], k5)
+        if not norm <= K5_TOL:
+            fail(f"K10 s2_gather on the {name} stream differs from K5 by "
+                 f"{norm}")
+        k5_norm = max(k5_norm, norm)
     plain_ms = cuda_ms(
         lambda: va.segment_sums_level_plain("s2_gather", *bi["k5"]))
     for name, res in results.items():
@@ -1349,9 +1403,26 @@ def phase_segsum_variants(device, bi):
               flush=True)
     print(f"phase 14 K10 checks: every level within {K5_TOL} of its plain "
           f"version (max abs err {err:.3g}), s1_search, s2_gather, "
-          f"prod_b128, prod_b512 bit-identical to K5 on both streams; "
-          f"{launches} launches; bench-step s2_gather plain {plain_ms:.3f} "
-          f"ms", flush=True)
+          f"prod_b128, prod_b512 bit-identical to each other and s2_gather "
+          f"within {k5_norm:.3g} of K5 on both streams, K5 within "
+          f"{k5_plain:.3g} of its plain version; {launches} launches; "
+          f"bench-step s2_gather plain {plain_ms:.3f} ms", flush=True)
+    k5, lib = bi["k5"], k10.segment_reduce_call(*bi["k5"])
+    calls = {"K5": lambda: sr.segment_sums_sorted(*k5),
+             "s2_gather": lambda: va.segment_sums_level("s2_gather", *k5),
+             "segment_reduce": lib}
+    turns: dict[str, list] = {name: [] for name in calls}
+    for _ in range(3):
+        for name, fn in calls.items():
+            turns[name].append(cuda_ms(fn, reps=REPS))
+    t = {name: statistics.median(v) for name, v in turns.items()}
+    print(f"phase 14 bench-step stream, in turns (median of 3 medians of "
+          f"10 samples of {REPS} back-to-back calls): K5 {t['K5']:.4f} ms, "
+          f"s2_gather (K5's old design) "
+          f"{t['s2_gather']:.4f} ms, segment_reduce {t['segment_reduce']:.4f}"
+          f" ms; K5 / s2_gather {t['K5'] / t['s2_gather']:.3f}, K5 / bound "
+          f"({bound5:.4f} ms) {t['K5'] / bound5:.2f}, K5 / segment_reduce "
+          f"{t['K5'] / t['segment_reduce']:.2f}", flush=True)
     res = results["bench step"]
     return (launches, err, (res["levels"]["s2_gather"]["ms"], plain_ms,
                             res["segment_reduce_ms"]))
@@ -1515,7 +1586,8 @@ def run(device: torch.device):
     (launches["probe_dyngrid"], errs["probe_dyngrid"], ms["probe_dyngrid"],
      bounds["probe_dyngrid"]) = phase_probe(device)
     (launches["segment_sum_variants"], errs["segment_sum_variants"],
-     ms["segment_sum_variants"]) = phase_segsum_variants(device, bi)
+     ms["segment_sum_variants"]) = phase_segsum_variants(
+         device, bi, bounds["segment_sums"][0])
     bounds["segment_sum_variants"] = bounds["segment_sums"]  # its full level
     (launches["rasterize_variants"], errs["rasterize_variants"],
      ms["rasterize_variants"]) = phase_raster_variants(device, inp)

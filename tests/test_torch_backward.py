@@ -43,6 +43,7 @@ from wgpu_3dgs_core_tpu_torch.render.renderer import (
     BinRasterize,
     tile_local_stream,
 )
+from wgpu_3dgs_core_tpu_torch.utils.numeric import cast_u8
 
 from .test_rowtrim import H, W, _scene
 from .test_segreduce import _setup
@@ -380,6 +381,63 @@ def test_render_reference_grads_match_jax(scene20):
     args, target, kw, ref = scene20
     mine = _port_grads(args, _l2(target), False, **dict(kw))
     _assert_grads(mine, ref)
+
+
+@functools.partial(jax.jit, static_argnames=("kw",))
+def _jax_reference_value_and_grads(args, target, kw):
+    """The JAX render_reference's image and jax.grad of sum((image -
+    target)^2) w.r.t. (means, cov3d_sigma6, color, opacity, sh)."""
+    def image(args):
+        means, cov6, color, opac, sh = args
+        return J.render_reference(means, cov6, color, opac, JCAM, sh=sh,
+                                  **dict(kw))
+
+    def loss(args):
+        return jnp.sum((image(args) - target) ** 2)
+
+    return image(args), jax.grad(loss)(args)
+
+
+def test_point_mode_grads_match_jax():
+    """POINT mode replaces each conic with a fixed dot, so the image does
+    not depend on cov3d_sigma6: the image and every gradient against the
+    JAX render_reference on the 20-gaussian scene (seed 7, 64x48), the
+    covariance's exact zeros included; backward runs when only the
+    covariance requires grad, and a training step gives every parameter a
+    gradient, as optax.adam steps every parameter."""
+    means, quats, scales, color, opac, sh = random_scene(20, seed=7)
+    cov6 = np.asarray(cov3d_from_rot_scale(quats, scales))
+    args = (means, cov6, color, opac, sh)
+    target = np.random.default_rng(8).random((48, 64, 3)).astype(np.float32)
+    kw = (("background", BG), ("sh_deg", 3),
+          ("display_mode", int(T.GaussianDisplayMode.POINT)))
+    ref_img, ref = _jax_reference_value_and_grads(args, target, kw)
+    assert not np.asarray(ref[1]).any()
+
+    ts = [tt(x).requires_grad_(True) for x in args]
+    res = T.render(*ts[:4], CAM, sh=ts[4], **dict(kw))
+    assert not bool(res.overflow)
+    np.testing.assert_allclose(nn(res.image), np.asarray(ref_img), rtol=0,
+                               atol=3e-5)
+    mine = torch.autograd.grad(((res.image - tt(target)) ** 2).sum(), ts)
+    np.testing.assert_array_equal(nn(mine[1]), np.asarray(ref[1]))
+    _assert_grads(mine, ref, names=("means", "cov6", "color", "opac", "sh"))
+
+    cov_only = tt(cov6).requires_grad_(True)
+    img = T.render(tt(means), cov_only, tt(color), tt(opac), CAM,
+                   sh=tt(sh), **dict(kw)).image
+    img.sum().backward()
+    assert cov_only.grad is not None and not cov_only.grad.any()
+
+    rgba = np.concatenate([color, opac[:, None]], axis=1) * np.float32(255)
+    soa = T.GaussianSoA(rot=quats, pos=means, color=cast_u8(rgba), sh=sh,
+                        scale=scales)
+    params = T.TrainableGaussians.from_soa(soa, device="cpu")
+    opt = torch.optim.Adam(params.parameters(), lr=1e-3)
+    step = T.make_train_step(CAM, tt(target), opt, sh_deg=3, background=BG,
+                             display_mode=T.GaussianDisplayMode.POINT)
+    step(params)
+    assert all(p.grad is not None for p in params.parameters())
 
 
 def test_render_grads_saturating_scene():

@@ -4,7 +4,8 @@ versions, launch counts, and the determinism of the backward; K7
 (one-level binning) and K8 (kernel bundles, the gaussian unpack of every
 layout) against their plain versions; the measurement path's K9
 (rasterizer levels: v5_full against K3), K10 (segment-sum levels:
-s2_gather against K5) and K11 (every live-bound launch form).
+s2_gather against K5) and K11 (every live-bound launch form); K5 on the
+streams its design finds hard.
 
 These need a CUDA card and nvcc, and skip without one. On a machine with
 a card: ``python -m pytest -m cuda tests/test_torch_cuda.py``, with
@@ -30,6 +31,10 @@ from wgpu_3dgs_core_tpu_torch.ops.transforms import cov3d_from_rot_scale
 from wgpu_3dgs_core_tpu_torch.render.renderer import tile_local_stream
 from wgpu_3dgs_core_tpu_torch.ops import probe as K11
 from wgpu_3dgs_core_tpu_torch.ops import variants as KV
+from wgpu_3dgs_core_tpu_torch.tools.bench_segsum import (
+    HARD_STREAMS,
+    hard_streams,
+)
 from wgpu_3dgs_core_tpu_torch.tools.probe_dyngrid import SENTINEL
 
 pytestmark = pytest.mark.cuda
@@ -318,12 +323,15 @@ def test_k9_v5_full_equals_k3(cuda, mode):
 
 
 def test_k10_s2_gather_equals_k5(cuda):
-    """K10's s1_search, s2_gather and K5 at other block sizes equal K5 bit
-    for bit on the backward's own stream; every level is within 1e-5 of
-    its plain version."""
+    """K10 keeps K5's old design (a warp per row): its s1_search,
+    s2_gather and the block-size levels equal each other bit for bit on
+    the backward's own stream, every level is within 1e-5 of its plain
+    version, and s2_gather within 1e-5 of K5 (which sums in another
+    order)."""
     k4, (keys, perm, gid_col, n) = _backward_inputs(cuda, 0)
     dfrag = TR.rasterize_tiles_bwd(*k4)
     k5 = TS.segment_sums_sorted(keys, perm, dfrag, gid_col, n)
+    old = {}
     for level in KV.SEGSUM_LEVELS:
         grad = KV.level_operand(level, dfrag, perm)
         got = KV.segment_sums_level(level, keys, perm, grad, gid_col, n)
@@ -331,7 +339,26 @@ def test_k10_s2_gather_equals_k5(cuda):
                                             gid_col, n)
         assert _normalized(got, want) <= 1e-5
         if level != "s0_stream":
-            assert torch.equal(_bits(got), _bits(k5)), level
+            old[level] = got
+    for level, got in old.items():
+        assert torch.equal(_bits(got), _bits(old["s2_gather"])), level
+    assert _normalized(old["s2_gather"], k5) <= 1e-5
+
+
+@pytest.mark.parametrize("name", HARD_STREAMS)
+def test_k5_on_hard_streams(cuda, name):
+    """K5 on the streams its design finds hard (tests/test_torch_segsum.py
+    holds their plain sums to numpy and JAX): within 1e-5 of each row's
+    largest sum of its plain version, exact zeros in the rows no run
+    reaches, and the same bits from two launches."""
+    keys, perm, grad, gid_col, n = hard_streams(device=cuda)[name]
+    got = TS.segment_sums_sorted(keys, perm, grad, gid_col, n)
+    again = TS.segment_sums_sorted(keys, perm, grad, gid_col, n)
+    want = TS.segment_sums_sorted_plain(keys, perm, grad, gid_col, n)
+    assert _normalized(got, want) <= 1e-5
+    reached = torch.isin(gid_col, keys[keys < n])
+    assert not bool(got[:, ~reached].any())
+    assert torch.equal(_bits(got), _bits(again))
 
 
 @pytest.mark.parametrize("form", K11.FORMS)

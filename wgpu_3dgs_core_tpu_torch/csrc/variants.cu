@@ -27,24 +27,27 @@
 //    MXU matmuls and lane-tree sums that K3 does not do: no level here.
 //
 // K10 replaces tools/bench_segsum.py::run_variant (pl.pallas_call at
-//    bench_segsum.py:104, level bodies in _mk_kernel). It varies K5
-//    (csrc/segreduce.cu): one warp per row of the compacted gid column, the
-//    lanes striding over the row's run, a fixed-order warp butterfly.
-//    Levels, cumulative:
+//    bench_segsum.py:104, level bodies in _mk_kernel). It varies K5's
+//    first design, which the levels keep as its record (csrc/segreduce.cu
+//    has since put its lanes over the sorted slots): one warp per row of
+//    the compacted gid column, the lanes striding over the row's run, a
+//    fixed-order warp butterfly. Levels, cumulative:
 //      0 s0_stream   each warp sums a fixed run of f / n_rows slots of the
 //                    already-permuted gradients: no search, no permutation
 //                    (the streaming floor);
 //      1 s1_search   the two lower_bound searches for the row's run, still
-//                    over the pre-permuted gradients: K5's summation order,
-//                    so bit for bit K5's output;
-//      2 s2_gather   the read through the sort's permutation: K5 itself;
-//    and K5 at 128 and 512 threads per block (prod_b128, prod_b512).
+//                    over the pre-permuted gradients: the design's
+//                    summation order, so bit for bit s2_gather's output;
+//      2 s2_gather   the read through the sort's permutation: the first
+//                    design's K5 itself;
+//    and s2_gather at 128 and 512 threads per block (prod_b128,
+//    prod_b512).
 //    The TPU tool's key transpose, one-hot build and HIGHEST contraction
 //    have no counterpart on the card.
 //
 // What bounds them: K9's full level is K3's work (per-(pixel, fragment)
 // arithmetic, ~20 flops to evaluate and ~9 to blend); K10's full level is
-// K5's (48 B per drawn slot, 36 B per row). Every level writes a result
+// K5's work (48 B per drawn slot, 36 B per row). Every level writes a result
 // that depends on all the work it did, so nvcc cannot drop any of it.
 
 #include "blend.cuh"

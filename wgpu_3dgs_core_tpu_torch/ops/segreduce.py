@@ -15,9 +15,16 @@ the rest) groups them gaussian-major. Then:
   compacted sums back in original gaussian order, exact zeros for
   gaussians with no fragments.
 
-Both are deterministic (no atomics). On CUDA tensors the wrappers launch
-``csrc/segreduce.cu``; on CPU tensors they run the plain versions. The
-TPU's one-hot MXU windows and bf16 splits are not carried over.
+K5's kernel puts its lanes over the sorted slots, not over rows: each
+block sums the runs of equal keys whose first slot lies in its chunk of
+:data:`SEGSUM_CHUNK` slots (walking on past the chunk to finish its last
+run) with a segmented scan, and writes each run's sums to the row holding
+its key; rows no run reaches are zeros. A first kernel copies the
+gradients slot-major into scratch, so the gather through the permutation
+reads a slot's 9 values from one place. K5 and K6 are deterministic
+(no atomics). On CUDA tensors the wrappers launch ``csrc/segreduce.cu``;
+on CPU tensors they run the plain versions. The TPU's one-hot MXU windows
+and bf16 splits are not carried over.
 """
 
 from __future__ import annotations
@@ -28,6 +35,10 @@ from .cuda import CudaKernel, I, P, check, on_cpu
 from .expand import TAB_CNT, TAB_GID
 
 GRAD_ROWS = 9
+# The slots whose runs one block of K5 owns, walked in two tiles
+# (csrc/segreduce.cu's kChunk and kTile): streams built to test K5 place
+# their runs against them.
+SEGSUM_CHUNK = 2048
 
 
 def gid_column_sorted(table_ints: torch.Tensor, n: int) -> torch.Tensor:
@@ -75,7 +86,7 @@ def segment_sums_sorted_plain(keys, perm, grad, gid_col,
 
 
 SEGMENT_SUMS = CudaKernel(
-    "segment_sums", "gs_segment_sums", [P, P, P, I, P, I, I, P],
+    "segment_sums", "gs_segment_sums", [P, P, P, I, P, I, I, P, P, P],
 )
 
 
@@ -93,9 +104,13 @@ def segment_sums_sorted(keys, perm, grad, gid_col, n: int) -> torch.Tensor:
         return segment_sums_sorted_plain(keys, perm, grad, gid_col, n)
     dev = grad.device
     out = torch.empty((GRAD_ROWS, rows), dtype=torch.float32, device=dev)
+    # Scratch: the gradients slot-major, and each gaussian's row.
+    grad_t = torch.empty((f, GRAD_ROWS), dtype=torch.float32, device=dev)
+    row_of = torch.empty(n, dtype=torch.int32, device=dev)
     SEGMENT_SUMS.launch(
         keys.data_ptr(), perm.data_ptr(), grad.data_ptr(), f,
-        gid_col.data_ptr(), rows, n, out.data_ptr(), work=rows, device=dev,
+        gid_col.data_ptr(), rows, n, out.data_ptr(), grad_t.data_ptr(),
+        row_of.data_ptr(), work=rows, device=dev,
     )
     return out
 

@@ -1,6 +1,6 @@
 """Variant kernels of the measurement path: K9 (the forward rasterizer K3
-stripped level by level) and K10 (the segment sums K5 stripped level by
-level), with their plain versions.
+stripped level by level) and K10 (the segment sums of K5's first design,
+a warp per row, stripped level by level), with their plain versions.
 
 K9 (:func:`rasterize_level`, replaces ``tools/bench_kernel_variants.py::
 run_variant``) and K10 (:func:`segment_sums_level`, replaces

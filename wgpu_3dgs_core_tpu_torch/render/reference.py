@@ -33,11 +33,28 @@ def view_dirs(means: torch.Tensor, camera: Camera) -> torch.Tensor:
     return torch.stack([di / norm for di in d], dim=-1)
 
 
-def point_conic(size: float, shape, device) -> torch.Tensor:
-    """POINT display mode: an isotropic dot of ~``size`` pixels std dev."""
+class _PointConic(torch.autograd.Function):
+    """POINT mode's conic, a constant [N, 3], that keeps the covariance
+    it replaces as an input: its gradient there is exact zeros, as
+    ``jax.grad`` gives for an input the image does not depend on."""
+
+    @staticmethod
+    def forward(ctx, cov3d_sigma6, inv: float):
+        ctx.cov_shape = cov3d_sigma6.shape
+        return device_constant([inv, 0.0, inv], cov3d_sigma6.device).expand(
+            cov3d_sigma6.shape[0], 3)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.new_zeros(ctx.cov_shape), None
+
+
+def point_conic(size: float, cov3d_sigma6: torch.Tensor) -> torch.Tensor:
+    """POINT display mode: an isotropic dot of ~``size`` pixels std dev for
+    each of the gaussians of ``cov3d_sigma6`` [N, 6], which gets a zero
+    gradient."""
     pt = max(float(size), 0.5)
-    inv = 1.0 / (pt * pt)
-    return device_constant([inv, 0.0, inv], device).expand(shape)
+    return _PointConic.apply(cov3d_sigma6, 1.0 / (pt * pt))
 
 
 def render_reference(
@@ -70,7 +87,7 @@ def render_reference(
     opacity = opacity * splats.compensation
     conic = splats.conic
     if display_mode == 2:  # point
-        conic = point_conic(size, conic.shape, dev)
+        conic = point_conic(size, cov3d_sigma6)
 
     rgb = gaussian_color(base_color, sh, view_dirs(means, camera), sh_deg,
                          no_sh0)

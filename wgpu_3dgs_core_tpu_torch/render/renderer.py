@@ -91,7 +91,7 @@ def project_splats(
     if display_mode == GaussianDisplayMode.POINT:
         pt = max(float(size), 0.5)
         splats = splats._replace(
-            conic=point_conic(size, splats.conic.shape, means.device),
+            conic=point_conic(size, cov3d_sigma6),
             extent=torch.where(
                 splats.mask[:, None],
                 float(math.ceil(np.float32(max_std_dev * pt))),

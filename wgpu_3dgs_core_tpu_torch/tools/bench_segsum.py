@@ -2,18 +2,25 @@
 
 The counterpart of ``tools/bench_segsum.py``, which attributes the TPU
 ``_segsum_kernel``'s cost by removing one ingredient at a time. The port
-asks the same question of K5 (``csrc/segreduce.cu``: one warp per row of
-the compacted gid column, two binary searches, a read through the sort's
-permutation, a fixed-order warp reduction). Levels, cumulative, in
-``csrc/variants.cu`` (wrapped by ``ops/variants.py``):
+asked the same question of K5's first design (one warp per row of the
+compacted gid column, two binary searches, a read through the sort's
+permutation, a fixed-order warp reduction); the levels keep that design
+as its record, beside K5 itself (``csrc/segreduce.cu``, now lanes over the
+sorted slots). Levels, cumulative, in ``csrc/variants.cu`` (wrapped by
+``ops/variants.py``):
 
 - ``s0_stream``: each warp sums a fixed run of ``f // rows`` slots of the
   gradients already in key order: no search, no permutation (the
   streaming floor);
 - ``s1_search``: adds the two searches for the row's run, still over the
-  key-ordered gradients: K5's summation order, so K5's output bit for bit;
-- ``s2_gather``: adds the read through the permutation: K5 itself;
-- ``prod_b128``, ``prod_b512``: K5 at 128 and 512 threads per block.
+  key-ordered gradients: the design's summation order, so ``s2_gather``'s
+  output bit for bit;
+- ``s2_gather``: adds the read through the permutation: the first design's
+  K5;
+- ``prod_b128``, ``prod_b512``: ``s2_gather`` at 128 and 512 threads per
+  block.
+
+:func:`hard_streams` gives the streams K5's present design finds hard.
 
 Levels 0-1 read ``grad[:, perm]``, made once outside the timed region
 (``ops/variants.py::level_operand``). ``torch.segment_reduce`` over the
@@ -36,7 +43,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.segreduce import GRAD_ROWS
+from ..ops.segreduce import GRAD_ROWS, SEGSUM_CHUNK
 from ..ops.variants import (
     SEGSUM_LEVELS,
     level_operand,
@@ -58,6 +65,76 @@ def synthetic_stream(f_pad: int, n: int, seed: int = 0, device="cuda"):
     gid_col = torch.full((n,), n, dtype=torch.int32)
     gid_col[:live.shape[0]] = live
     return tuple(t.to(device) for t in (keys, perm, grad, gid_col)) + (n,)
+
+
+HARD_STREAMS = ("long_run", "straddling", "empty", "all_drawn",
+                "one_gaussian", "live_no_slot", "missing_key")
+
+
+def _runs_cut_at(rng, total: int, cut: int, straddle: bool):
+    """Run lengths of 1-9 slots summing to ``total``: with ``straddle`` no
+    run starts at a multiple of ``cut`` (every boundary lies inside a
+    run), else a run starts at each (every boundary ends one)."""
+    lengths, pos = [], 0
+    while pos < total:
+        length = min(int(rng.integers(1, 10)), total - pos)
+        end = pos + length
+        if straddle and end % cut == 0 and end < total:
+            length += 1
+        elif not straddle and pos // cut != (end - 1) // cut:
+            length = (pos // cut + 1) * cut - pos
+        lengths.append(length)
+        pos += length
+    return np.array(lengths)
+
+
+def hard_streams(device="cpu"):
+    """Streams in K5's form that its design finds hard, each of 6 chunks of
+    slots (``SEGSUM_CHUNK``, walked in tiles of half a chunk) over 3,000
+    gaussians, one shape for all: a run longer than three chunks, every
+    tile end inside a run, no drawn slot, every slot drawn (a run ending
+    at each tile end), one gaussian owning every slot, live rows with no
+    drawn slot, drawn keys missing from the gid column. Each is made as
+    render's backward makes it: gaussian ids dealt to random slots, the
+    rest keyed ``n + slot``, stably sorted. Returns {name: (keys, perm,
+    grad, gid_col, n)}."""
+    chunk = SEGSUM_CHUNK
+    n, f, tile = 3000, 6 * chunk, chunk // 2
+    out = {}
+    for i, name in enumerate(HARD_STREAMS):
+        rng = np.random.default_rng(i)
+        counts = np.zeros(n, np.int64)
+        if name == "long_run":
+            counts[:] = rng.integers(0, 3, n)
+            counts[1000] = 3 * chunk + chunk // 2
+        elif name in ("straddling", "all_drawn"):
+            straddle = name == "straddling"
+            lengths = _runs_cut_at(rng, f - chunk if straddle else f, tile,
+                                   straddle)
+            gids = np.sort(rng.choice(n, lengths.shape[0], replace=False))
+            counts[gids] = lengths
+        elif name == "one_gaussian":
+            counts[1234] = f
+        elif name != "empty":
+            counts[:] = rng.integers(0, 5, n)
+        live = counts > 0
+        if name in ("empty", "one_gaussian", "live_no_slot"):
+            live |= rng.random(n) < 0.2  # live rows with no drawn slot
+        if name == "missing_key":
+            live &= rng.random(n) >= 0.1
+        drawn = np.repeat(np.arange(n), counts)
+        slot_keys = n + np.arange(f)
+        slot_keys[np.sort(rng.choice(f, drawn.shape[0], replace=False))] = (
+            rng.permutation(drawn))
+        keys, perm = torch.sort(torch.from_numpy(slot_keys.astype(np.int32)),
+                                stable=True)
+        gid_col = np.full(n, n, np.int32)
+        gid_col[:int(live.sum())] = np.nonzero(live)[0]
+        grad = rng.normal(size=(GRAD_ROWS, f)).astype(np.float32)
+        out[name] = tuple(
+            t.to(device) for t in (keys, perm, torch.from_numpy(grad),
+                                   torch.from_numpy(gid_col))) + (n,)
+    return out
 
 
 def segment_reduce_call(keys, perm, grad, gid_col, n: int):
