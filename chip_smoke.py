@@ -5,7 +5,9 @@
 Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
 
 1. build the port's kernels from its csrc/ sources and the kernel-bundle
-   sources of phases 10-11 (one nvcc per source, all started together);
+   sources of phases 10-11 (one nvcc per source, all started together),
+   and print ptxas's registers, shared memory and stack of each
+   rasterizer kernel;
 2. hold each forward kernel against its plain torch version on the card,
    on a mid scene (65,536 gaussians, 512x512): K1 and K2 bit for bit, K3
    within 3e-5 (the card's exp and FMA contraction differ from torch's);
@@ -25,8 +27,11 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    row, K5 within 1e-5 of the largest sum of its row, K6 bit for bit; K5
    on the seven streams its design finds hard (tools/bench_segsum.py::
    hard_streams) within 1e-5, zeros in the rows no run reaches, two
-   launches bit-identical; two backward passes of the slice give
-   bit-identical gradients;
+   launches bit-identical; K4 in SPLAT and ELLIPSE mode on the mid stream
+   and on the tiles the pixel-box cull finds hard (tools/
+   bench_kernel_variants.py::hard_tiles) within 1e-4 of its plain version
+   and of its first design, two launches bit-identical; two backward
+   passes of the slice give bit-identical gradients;
 7. hold the slice's gradients (means, quats, scales, colour, opacity, sh;
    loss sum((image - target)^2)) against autograd of render_reference on
    the card, on the spec scene, within 1e-4 of each parameter's largest
@@ -37,7 +42,9 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    timed beside the forward; three Adam steps of make_train_step on
    TrainableGaussians at the same size; each backward kernel held against
    its plain version and timed beside it and, for K5 and K6, beside the
-   one PyTorch call that computes the same function;
+   one PyTorch call that computes the same function; K4 within 1e-4 of
+   its first design (ops/variants.py::rasterize_bwd_first) on the bench
+   stream and the hard tiles;
 9. the profile of phase 5 for the training step;
 10. K8, the kernel-bundle launcher, at mid size (66,773 items, a ragged
     tail): every bundle shape of tests/test_kernel_bundle.py (map_add,
@@ -75,14 +82,22 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     then K5, s2_gather and segment_reduce timed in turns on the bench-step
     stream;
 15. K9, the rasterizer levels (tools/bench_kernel_variants.py) on phase 4's
-    stream, timed: v5_full bit for bit against K3, every other level within
-    1e-5 of each tile's largest value of its plain version;
+    stream, timed: v5_full (K3's first design, no pixel-box cull) bit for
+    bit against K3, every other level within 1e-5 of each tile's largest
+    value of its plain version; then, in both modes on the mid stream and
+    the hard tiles, v5_full bit for bit against K3 and K3 within 3e-5 of
+    its plain version;
 16. the port bench (wgpu_3dgs_core_tpu_torch/bench.py) in-process, its
     headline step and --full, each printing its JSON line, no overflow;
 17. bench-shape gradient parity (tools/grad_parity.py: 100,000 gaussians,
     1920x1080, 256x256 crop) within 1e-4 normalized;
 18. the ELLIPSE repair: the bench scene in ELLIPSE mode at the capacities
-    measure_capacities gives that mode at headroom 1.0, no overflow.
+    measure_capacities gives that mode at headroom 1.0, no overflow;
+19. the rasterizer's redesign on the bench stream, in turns (median of 3
+    medians of 10 samples): K3 against its first design (v5_full), K4
+    against its first design, and K4 on its longest tile alone (the
+    tail); the (warp, fragment) pairs the cull keeps and skips and the
+    blending warp events.
 
 Then a JSON line of the kernels (launches on the training step, for K7 and
 K8 on phases 11-12, for K9-K11 on the tools' runs of phases 13-15; errors,
@@ -433,6 +448,21 @@ def compare_k3(inp, tiles=None) -> float:
     return err
 
 
+def ptxas_kernels(log: str, keys) -> list:
+    """(mangled name, ptxas's resource lines) of each kernel in an nvcc -v
+    log whose name contains one of ``keys``."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            if any(k in name for k in keys):
+                out.append((name, []))
+        elif out and name == out[-1][0] and (
+                "registers" in ln or "stack frame" in ln):
+            out[-1][1].append(ln.split(":", 1)[-1].strip())
+    return [(n, " / ".join(lines)) for n, lines in out]
+
+
 def phase_build(bundle_sources):
     """The kernel library, the bundle sources and K11's relocatable
     library, every nvcc started together (one thread each)."""
@@ -443,6 +473,7 @@ def phase_build(bundle_sources):
         info, infos, pinfo = lib.result(), bundles.result(), probe.result()
     cuda.library()
     regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
+    raster = ptxas_kernels(info.log, ("rasterize_", "raster_level_kernelILi5"))
     bregs = sorted({int(ln.split("Used ")[1].split(" registers")[0])
                     for b in infos for ln in b.log.splitlines()
                     if "Used " in ln and "registers" in ln})
@@ -452,6 +483,8 @@ def phase_build(bundle_sources):
           f"{max(b.seconds for b in infos):.1f} s (registers {bregs}); "
           f"K11 relocatable (-rdc, cudadevrt) in {pinfo.seconds:.1f} s",
           flush=True)
+    print("phase 1 rasterizer kernels (ptxas): "
+          + "; ".join(f"{name}: {info}" for name, info in raster), flush=True)
 
 
 def mid_scene(device):
@@ -663,12 +696,64 @@ def k5_hard_streams(device):
     return err, norm
 
 
+def with_mode(k3, mode: int):
+    """K3's arguments with the display mode replaced."""
+    return k3[:5] + (mode,)
+
+
+def k4_inputs(k3, seed: int):
+    """K4's arguments for K3's ``k3`` (every fragment drawn as K3 drew it),
+    with K3's output and a cotangent drawn from ``seed``."""
+    frags, start, draw_len, bg, cutoff_sq, mode = k3
+    out = ra.rasterize_tiles_fwd(*k3)
+    gen = torch.Generator(device=out.device).manual_seed(seed)
+    g_out = torch.randn(out.shape, generator=gen, device=out.device)
+    return (frags, start, draw_len, draw_len, out, g_out, bg, cutoff_sq,
+            mode)
+
+
+def hard_tile_cases(device):
+    """The hard tiles of the pixel-box cull (tools/bench_kernel_variants.py
+    ::hard_tiles), in SPLAT and ELLIPSE mode: [(name, K3's arguments)]."""
+    return [(f"{name}/{'ELLIPSE' if mode else 'SPLAT'}",
+             (frags, start, lens, BG, 9.0, mode))
+            for name, (frags, start, lens) in k9.hard_tiles(device).items()
+            for mode in (0, 1)]
+
+
+def check_k4(name, k4):
+    """K4 within K4_TOL of its plain version and of its first design
+    (ops/variants.py::rasterize_bwd_first), and two launches
+    bit-identical. Returns the max normalized errors against the two."""
+    got = ra.rasterize_tiles_bwd(*k4)
+    if not equal_bits(got, ra.rasterize_tiles_bwd(*k4)):
+        fail(f"two K4 launches on {name} differ")
+    if not torch.isfinite(got).all():
+        fail(f"K4 output on {name} is not finite")
+    n_plain = normalized_err(got, ra.rasterize_tiles_bwd_plain(*k4))
+    if not n_plain <= K4_TOL:
+        fail(f"K4 on {name} differs from its plain version by {n_plain}")
+    n_first = normalized_err(got, va.rasterize_bwd_first(*k4))
+    if not n_first <= K4_TOL:
+        fail(f"K4 on {name} differs from its first design by {n_first}")
+    return n_plain, n_first
+
+
 def phase_backward_kernels(device, mid):
     cfg = MID
     cam, args, caps, inp = mid
     errs, (n4, n5) = compare_backward(backward_inputs(inp))
     hard_err, hard_norm = k5_hard_streams(device)
     errs = (errs[0], max(errs[1], hard_err), errs[2])
+    # K4 in both modes on the mid stream and on the hard tiles: within
+    # K4_TOL of its plain version and of its first design, two launches
+    # bit-identical.
+    k4_plain = k4_first = 0.0
+    cases = [(f"mid/{mode}", with_mode(inp["k3"], mode))
+             for mode in (0, 1)] + hard_tile_cases(device)
+    for name, k3 in cases:
+        a, b = check_k4(name, k4_inputs(k3, seed=3))
+        k4_plain, k4_first = max(k4_plain, a), max(k4_first, b)
 
     # Two backward passes of the whole slice, bit for bit.
     x = leaves(args)
@@ -683,7 +768,10 @@ def phase_backward_kernels(device, mid):
     print(f"phase 6 backward kernels vs plain ({cfg['n']} gaussians, "
           f"{cfg['width']}x{cfg['height']}, {int(inp['total'])} fragments, "
           f"random cotangent): K4 max abs err {errs[0]:.3g}, normalized "
-          f"{n4:.3g} (tol {K4_TOL}); K5 max abs err {errs[1]:.3g}, "
+          f"{n4:.3g} (tol {K4_TOL}), in both modes on the mid stream and "
+          f"the {len(k9.HARD_TILES)} hard tile sets {k4_plain:.3g}, "
+          f"{k4_first:.3g} from its first design, two launches "
+          f"bit-identical; K5 max abs err {errs[1]:.3g}, "
           f"normalized {n5:.3g} (tol {K5_TOL}), on the "
           f"{len(k10.HARD_STREAMS)} hard streams {hard_norm:.3g}, unreached "
           f"rows zero, two launches bit-identical; K6 bit-identical; two "
@@ -736,13 +824,16 @@ def phase_spec_grads(device):
 def rasterizer_pairs(frags, tile_start, draw_len, cutoff_sq=9.0, mode=0):
     """(evaluated, blended) (fragment, pixel) pairs of this stream: K3 and
     K4 evaluate a fragment at a pixel while the pixel's transmittance
-    before it is above T_MIN, and blend it there when it is kept. Counted
-    with the plain version's arithmetic."""
+    before it is above T_MIN, and blend it there when it is kept; and the
+    blending warp events, the (warp, fragment) pairs of K3's and K4's warps
+    with a pixel of the warp blending. Counted with the plain version's
+    arithmetic."""
     dev = frags.device
     p = torch.arange(ra.PIX, device=dev)
     px = (p % 16).float() + 0.5
     py = torch.div(p, 16, rounding_mode="floor").float() + 0.5
-    evaluated = blended = 0
+    lanes = k9.warp_pixels().to(dev).flatten()
+    evaluated = blended = events = 0
     tiles = torch.arange(tile_start.shape[0], device=dev)
     for _, valid, idx in ra._tile_batches(tile_start, draw_len, tiles):
         alpha, ok = ra._frag_alpha(frags[:, idx][..., None], px, py,
@@ -752,8 +843,11 @@ def rasterizer_pairs(frags, tile_start, draw_len, cutoff_sq=9.0, mode=0):
         t_before = torch.cat([torch.ones_like(t[:, :1]), t[:, :-1]], dim=1)
         live = (t_before > ra.T_MIN) & valid[..., None]
         evaluated += int(live.sum())
-        blended += int((live & keep).sum())
-    return evaluated, blended
+        blends = live & keep
+        blended += int(blends.sum())
+        by_warp = blends[..., lanes].reshape(*blends.shape[:2], 8, 32)
+        events += int(by_warp.any(dim=-1).sum())
+    return evaluated, blended, events
 
 
 def bound(nbytes: float, flops: float):
@@ -778,7 +872,8 @@ def kernel_bounds(inp, bi):
     drawn = int(draw_len.sum())
     n_live = int((table.ints[ex.TAB_CNT] > 0).sum())
     pix_block = t_total * 4 * ra.PIX * f32  # one [T, 4, 256] array
-    evaluated, blended = rasterizer_pairs(frags, tile_start, draw_len)
+    evaluated, blended, events = rasterizer_pairs(frags, tile_start,
+                                                  draw_len)
     return {
         "expand_rows": bound(
             f32 * ((ex.TAB_ROWS + table.attrs.shape[0]) * n + 1)
@@ -800,7 +895,7 @@ def kernel_bounds(inp, bi):
             f32 * n + sr.GRAD_ROWS * f32 * n_live + sr.GRAD_ROWS * f32 * n,
             0),
     }, dict(evaluated=evaluated, blended=blended, drawn=drawn,
-            n_live=n_live)
+            n_live=n_live, warp_events=events)
 
 
 def library_calls(bi):
@@ -876,6 +971,13 @@ def phase_train(device, scene, inp, fwd_ms, errs):
     bi = backward_inputs(inp)
     e_full, (n4, n5) = compare_backward(bi)
     errs = errs[:3] + tuple(max(a, b) for a, b in zip(errs[3:], e_full))
+    # K4's first design on the bench stream and the hard tiles: K4 within
+    # K4_TOL of it.
+    n_first = 0.0
+    for name, k4_args in [("the bench stream", bi["k4"])] + [
+            (name, k4_inputs(k3, seed=4))
+            for name, k3 in hard_tile_cases(device)]:
+        n_first = max(n_first, check_k4(name, k4_args)[1])
     lib5, lib6 = library_calls(bi)
     k4, k5, k6 = bi["k4"], bi["k5"], bi["k6"]
     ms = {
@@ -901,7 +1003,8 @@ def phase_train(device, scene, inp, fwd_ms, errs):
           f"{caps['max_rows']}) losses "
           + ", ".join(f"{v:.6g}" for v in losses)
           + f"; bench stream K4 normalized err {n4:.3g}, K5 {n5:.3g}, K6 "
-          f"bit-identical; kernel/plain/library ms "
+          f"bit-identical; K4 within {n_first:.3g} of its first design on "
+          f"the bench stream and the hard tiles; kernel/plain/library ms "
           + ", ".join(f"{k} {a:.3f}/{b:.3f}/{c:.3f}" if c is not None
                       else f"{k} {a:.3f}/{b:.3f}"
                       for k, (a, b, c) in ms.items()),
@@ -1428,10 +1531,12 @@ def phase_segsum_variants(device, bi, bound5):
                             res["segment_reduce_ms"]))
 
 
-def phase_raster_variants(device, inp):
+def phase_raster_variants(device, inp, mid):
     """K9's levels through the tool on phase 4's bench stream, then
-    v5_full held to K3 bit for bit and every other level to its plain
-    version within K9_TOL of each tile's largest value."""
+    v5_full (K3's first design) held to K3 bit for bit and every other
+    level to its plain version within K9_TOL of each tile's largest value;
+    then, in both modes on the mid stream and the hard tiles, K3 bit for
+    bit equal to v5_full and within K3_TOL of its plain version."""
     k3_args = inp["k3"]
     torch.cuda.synchronize(device)
     reset_launch_counts()
@@ -1456,6 +1561,17 @@ def phase_raster_variants(device, inp):
             fail(f"K9 {level} differs from its plain version by "
                  f"{norms[level]} of the tile's largest value")
     v4_k3 = equal_bits(va.rasterize_level("v4_color", *k3_args), k3)
+    cases = [(f"mid/{mode}", with_mode(mid[3]["k3"], mode))
+             for mode in (0, 1)] + hard_tile_cases(device)
+    k3_plain = 0.0
+    for name, args in cases:
+        k3 = ra.rasterize_tiles_fwd(*args)
+        if not equal_bits(va.rasterize_level("v5_full", *args), k3):
+            fail(f"K9 v5_full on {name} differs from K3")
+        err = abs_err(k3, ra.rasterize_tiles_fwd_plain(*args))
+        if not err <= K3_TOL:
+            fail(f"K3 on {name} differs from its plain version by {err}")
+        k3_plain = max(k3_plain, err)
     plain_ms = cuda_ms(lambda: va.rasterize_level_plain("v5_full", *k3_args),
                        iters=3)
     n_t = result["tiles"]
@@ -1463,7 +1579,10 @@ def phase_raster_variants(device, inp):
           f"{result['fragments']} fragments): "
           + ", ".join(f"{k} {v['ms']:.4f} ms {v['us_per_tile']:.4f} us/tile"
                       for k, v in result["levels"].items())
-          + f"; v5_full bit-identical to K3, v4_color bit-identical to K3: "
+          + f"; v5_full bit-identical to K3 (also in both "
+          f"modes on the mid stream and the {len(k9.HARD_TILES)} hard tile "
+          f"sets, where K3 is within {k3_plain:.3g} of its plain version, "
+          f"tol {K3_TOL}), v4_color bit-identical to K3: "
           f"{v4_k3}; normalized err vs plain "
           + ", ".join(f"{k} {v:.3g}" for k, v in norms.items())
           + f" (tol {K9_TOL}; v5 held to K3; max abs err "
@@ -1521,6 +1640,59 @@ def phase_ellipse(scene):
     print(f"phase 18 ELLIPSE capacities (bench scene, headroom 1.0): "
           f"{caps[0]} fragments / {caps[1]} rows (SPLAT's {splat[0]} / "
           f"{splat[1]}); render without overflow", flush=True)
+
+
+def longest_tile(k4):
+    """K4's arguments for the tile with the most drawn fragments alone (its
+    slots cut out of the stream, so no padding is zeroed), and its
+    index."""
+    frags, start, tile_len, draw_len, out, g_out, bg, cutoff_sq, mode = k4
+    t = int(torch.argmax(draw_len))
+    s0, n = int(start[t]), int(tile_len[t])
+    one = slice(t, t + 1)
+    return (frags[:, s0:s0 + n].contiguous(), torch.zeros_like(start[one]),
+            tile_len[one], draw_len[one], out[one].contiguous(),
+            g_out[one].contiguous(), bg, cutoff_sq, mode), t
+
+
+def phase_raster_redesign(device, inp, bi, counts, bounds):
+    """K3 and K4 against their first designs (K9's v5_full and
+    rasterize_bwd_first), in turns on the bench stream (median of 3
+    medians of 10 samples, as in phase 14), with K4 on its longest tile
+    alone against the whole kernel in the same turns; and the cull's
+    counts on the bench stream."""
+    k3, k4 = inp["k3"], bi["k4"]
+    tile_args, tile = longest_tile(k4)
+    calls = {
+        "K3": lambda: ra.rasterize_tiles_fwd(*k3),
+        "K3 v5_full": lambda: va.rasterize_level("v5_full", *k3),
+        "K4": lambda: ra.rasterize_tiles_bwd(*k4),
+        "K4 first": lambda: va.rasterize_bwd_first(*k4),
+        "K4 longest tile": lambda: ra.rasterize_tiles_bwd(*tile_args),
+    }
+    torch.cuda.synchronize(device)
+    turns: dict[str, list] = {name: [] for name in calls}
+    for _ in range(3):
+        for name, fn in calls.items():
+            turns[name].append(cuda_ms(fn))
+    t = {name: statistics.median(v) for name, v in turns.items()}
+    kept, skipped = k9.cull_counts(*k3[:3])
+    b3, b4 = bounds["rasterize_fwd"][0], bounds["rasterize_bwd"][0]
+    print(f"phase 19 rasterizer redesign, in turns on the bench stream "
+          f"(median of 3 medians of 10 samples), ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + f"; K3 / v5_full {t['K3'] / t['K3 v5_full']:.3f}, K3 / bound "
+          f"({b3:.4f} ms) {t['K3'] / b3:.2f}; K4 / first "
+          f"{t['K4'] / t['K4 first']:.3f}, K4 / bound ({b4:.4f} ms) "
+          f"{t['K4'] / b4:.2f}", flush=True)
+    print(f"phase 19 cull on the bench stream ({counts['drawn']} drawn "
+          f"fragments, {8 * counts['drawn']} (warp, fragment) pairs): kept "
+          f"{kept}, skipped {skipped}, blending warp events "
+          f"{counts['warp_events']}; tail: the longest tile ({tile}, "
+          f"{int(k4[3][tile])} drawn fragments) alone "
+          f"{t['K4 longest tile']:.4f} ms = "
+          f"{t['K4 longest tile'] / t['K4']:.3f} of the whole K4",
+          flush=True)
 
 
 FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
@@ -1590,14 +1762,15 @@ def run(device: torch.device):
          device, bi, bounds["segment_sums"][0])
     bounds["segment_sum_variants"] = bounds["segment_sums"]  # its full level
     (launches["rasterize_variants"], errs["rasterize_variants"],
-     ms["rasterize_variants"]) = phase_raster_variants(device, inp)
+     ms["rasterize_variants"]) = phase_raster_variants(device, inp, mid)
     bounds["rasterize_variants"] = bounds["rasterize_fwd"]
     phase_port_bench(device)
     phase_grad_parity(device)
     phase_ellipse(scene)
-    t18 = time.perf_counter()
-    print(f"wall time: phases 1-12 {t12 - t0:.1f} s, phases 13-18 "
-          f"{t18 - t12:.1f} s", flush=True)
+    phase_raster_redesign(device, inp, bi, counts, bounds)
+    t19 = time.perf_counter()
+    print(f"wall time: phases 1-12 {t12 - t0:.1f} s, phases 13-19 "
+          f"{t19 - t12:.1f} s", flush=True)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -383,6 +383,23 @@ def test_render_reference_grads_match_jax(scene20):
     _assert_grads(mine, ref)
 
 
+def test_render_reference_grads_at_clamp_ties_match_jax():
+    """ELLIPSE mode with a third of the opacities at exactly 0.99: every
+    ring pixel of those gaussians ties the alpha clamp. The port's
+    render_reference splits the gradient there as jnp.minimum does (half
+    to the opacity); its gradients match jax.grad of the JAX
+    render_reference."""
+    means, quats, scales, color, opac, sh = random_scene(20, seed=5)
+    opac[::3] = np.float32(0.99)
+    args = (means, quats, scales, color, opac, sh)
+    target = np.random.default_rng(6).random((48, 64, 3)).astype(np.float32)
+    kw = (("background", BG), ("sh_deg", 3),
+          ("display_mode", int(T.GaussianDisplayMode.ELLIPSE)))
+    ref = _jax_reference_grads(args, target, kw)
+    mine = _port_grads(args, _l2(target), False, **dict(kw))
+    _assert_grads(mine, ref)
+
+
 @functools.partial(jax.jit, static_argnames=("kw",))
 def _jax_reference_value_and_grads(args, target, kw):
     """The JAX render_reference's image and jax.grad of sum((image -

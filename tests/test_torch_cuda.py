@@ -200,7 +200,8 @@ def test_render_on_card_matches_cpu_and_counts_launches(cuda):
                                  "expand_fragments_bbox": 0,
                                  "kernel_bundle": 0, "rasterize_variants": 0,
                                  "segment_sum_variants": 0,
-                                 "probe_dyngrid": 0}
+                                 "probe_dyngrid": 0,
+                                 "rasterize_bwd_first": 0}
     ref = T.render(*(a.cpu() for a in args), CAM, background=BG)
     assert not bool(res.overflow) and not bool(ref.overflow)
     err = float((res.image.cpu() - ref.image).abs().max())

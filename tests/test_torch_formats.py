@@ -162,7 +162,7 @@ def test_cpu_render_launches_no_kernel():
                            "rasterize_bwd", "segment_sums", "uncompact",
                            "expand_fragments_bbox", "kernel_bundle",
                            "rasterize_variants", "segment_sum_variants",
-                           "probe_dyngrid"}
+                           "probe_dyngrid", "rasterize_bwd_first"}
     assert not any(counts.values()), counts
 
 

@@ -28,36 +28,160 @@
 // What bounds them on the card: the per-(pixel, fragment) arithmetic (K3:
 // one exp and ~20 flops to evaluate a fragment at a pixel, ~9 more to
 // blend it; K4: the same evaluation, ~47 flops to differentiate a blend,
-// and a 9-value block reduction per fragment) and the serial dependence through T inside each
-// pixel. Fragment reads are 36 B each, read once per tile.
+// and a 9-value warp reduction per fragment a warp blends) and the serial
+// dependence through T inside each pixel. Fragment reads are 36 B each,
+// read once per tile.
 //
-// Design: one 256-thread block per tile, one pixel per thread. Fragments
-// are staged cooperatively through shared memory in batches (one
-// coalesced load per attribute row); every thread then walks the batch
-// from shared memory, where all lanes read the same address (a
-// broadcast). K3 lets a pixel stop once it saturates and the block stop at
-// the next batch once every pixel has (__syncthreads_count), so occluded
-// fragments of dense tiles are never read. K4 walks the same fragments in
-// the same order with the same T recurrence (frag_alpha of blend.cuh is
-// shared, so both kernels make the same blend decisions bit for bit). Each
-// fragment's 9 per-pixel terms are summed by a warp butterfly (skipped by
-// a vote when no lane of the warp blends the fragment), then the 8 warp
-// partials through shared memory in a fixed order: the gradients are
+// Design: one 256-thread block per tile, one pixel
+// per thread, each warp on an 8x4 pixel block. Fragments are staged
+// cooperatively through shared memory in batches (one coalesced load per
+// attribute row), each with its conservative pixel box (blend.cuh's
+// frag_pixel_box: the pixels outside it are ones frag_alpha rejects). A
+// warp then walks, in order, only the fragments whose box meets its pixels
+// (a ballot over each 32 staged boxes): the others it would reject at every
+// one of its pixels, so the output is bit for bit the full loop's. All
+// lanes read a staged fragment at the same address (a broadcast). K3 lets a
+// pixel stop once it saturates and the block stop at the next batch once
+// every pixel has (__syncthreads_count), so occluded fragments of dense
+// tiles are never read. K4 walks the same fragments in the same order with
+// the same T recurrence (frag_alpha of blend.cuh is shared, so both kernels
+// make the same blend decisions bit for bit), and a warp stops walking once
+// all its pixels have saturated. The 9 per-pixel terms of each fragment a
+// warp blends are summed by a reduce-scatter across the warp (12 shuffles,
+// where a butterfly per value takes 45), the lanes holding the 9 sums store
+// them to shared memory, and the block sums the warps' partials in a fixed
+// order, skipping the warps that blended nothing: the gradients are
 // deterministic, with no atomics. Every slot of the stream is written:
 // fragments a tile did not draw, or drew after it saturated, and the
 // stream's padding get exact zeros. The TPU version's window-pair stream
 // reads, flag words, group unroll, log-T carry and triangular-matmul
 // cumsums existed only for Mosaic and the MXU and are not carried over.
+// Each warp covers an 8x4 pixel block rather than two 16-pixel rows: the
+// bench scene's boxes are about 9 pixels wide, so a block meets fewer of
+// them. Reducing one fragment at a time keeps K4 at 64 registers; three
+// at once took 127 and halved the resident blocks (PERF.md). K3's
+// first design (no cull) is K9's v5_full, K4's is variants.cu's
+// rasterize_bwd_first_kernel; both stay as measurement records.
 
 #include "blend.cuh"
 #include "common.cuh"
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = kPix / 32;
 constexpr int kBwdBatch = 128;       // K4 fragments staged per batch
+constexpr int kBwdChunks = kBwdBatch / 32;
 constexpr int kTailSlots = 4096;     // K4 padding slots zeroed per block
 
+// Thread p's pixel, row-major in the tile: warp w covers columns
+// 8 (w & 1) .. + 7 and rows 4 (w >> 1) .. + 3, lane l the block's pixel
+// (l & 7, l >> 3). The output keeps its row-major pixel order.
+__device__ __forceinline__ int pixel_of(int p) {
+  const int w = p >> 5;
+  const int l = p & 31;
+  return ((w >> 1) * 4 + (l >> 3)) * kTile + (w & 1) * 8 + (l & 7);
+}
+
+// Warp w's pixel block [x0, x1] x [y0, y1].
+__device__ __forceinline__ void warp_block(int w, int& x0, int& x1, int& y0,
+                                           int& y1) {
+  x0 = (w & 1) * 8;
+  x1 = x0 + 7;
+  y0 = (w >> 1) * 4;
+  y1 = y0 + 3;
+}
+
+// Stage fragments [col, col + count) of the stream: thread p < count
+// loads fragment p's 9 rows (one coalesced load per row) and its pixel
+// box.
+template <int kCols>
+__device__ __forceinline__ void stage_batch(const float* __restrict__ frags,
+                                            size_t fs, size_t col, int count,
+                                            int p, float cutoff_sq, int mode,
+                                            float (*s_frag)[kCols],
+                                            unsigned* s_box) {
+  if (p >= count) return;
+  float f[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    f[r] = __ldg(frags + r * fs + col + p);
+    s_frag[r][p] = f[r];
+  }
+  s_box[p] = frag_pixel_box(f[0], f[1], f[2], f[3], f[4], f[8], cutoff_sq,
+                            mode);
+}
+
+// The warp's hits among fragments [c, c + 32) of a staged batch: bit j set
+// when fragment c + j (< count) has a box meeting the warp's pixel block.
+// Warp-uniform.
+__device__ __forceinline__ unsigned warp_hits(const unsigned* s_box, int c,
+                                              int count, int lane, int x0,
+                                              int x1, int y0, int y1) {
+  const int j = c + lane;
+  return __ballot_sync(kFull,
+                       j < count && box_hits(s_box[j], x0, x1, y0, y1));
+}
+
+// A warp's reduce-scatter of its lanes' 9 values: after it, the lane that
+// reduce_scatter_row names holds the sum over the 32 lanes of value row.
+// Each step over lane bit b (4 down to 0) halves the values a lane keeps,
+// the first ceil(s / 2) to the lanes with the bit clear and the rest to
+// the others, one shuffle per kept value: 5 + 3 + 2 + 1 + 1 = 12
+// shuffles, where a butterfly per value takes 45. The order of the
+// additions is fixed.
+__device__ __forceinline__ float reduce_scatter(float (&v)[kRows],
+                                                int lane) {
+  int s = kRows;  // values still held: a constant once the loops unroll
+#pragma unroll
+  for (int b = 4; b >= 0; --b) {
+    const int m = 1 << b;
+    if (s > 1) {
+      const int ns = (s + 1) / 2;
+      const bool upper = (lane & m) != 0;
+#pragma unroll
+      for (int k = 0; k < (kRows + 1) / 2; ++k) {
+        if (k < ns) {
+          const float lo = v[k];
+          const float hi = ns + k < s ? v[ns + k] : 0.0f;
+          const float keep = upper ? hi : lo;
+          const float send = upper ? lo : hi;
+          v[k] = keep + __shfl_xor_sync(kFull, send, m);
+        }
+      }
+      s = ns;
+    } else {
+      v[0] += __shfl_xor_sync(kFull, v[0], m);
+    }
+  }
+  return v[0];
+}
+
+// The value reduce_scatter leaves in `lane`, or -1 where the lane holds
+// padding or a copy another lane (with a clear bit) already holds.
+__device__ __forceinline__ int reduce_scatter_row(int lane) {
+  int s = kRows;
+  int off = 0;
+  int real = kRows;  // the values among the ones held that are not padding
+  for (int b = 4; b >= 0; --b) {
+    const bool upper = ((lane >> b) & 1) != 0;
+    if (s > 1) {
+      const int ns = (s + 1) / 2;
+      if (upper) {
+        off += ns;
+        real = max(real - ns, 0);
+      } else {
+        real = min(real, ns);
+      }
+      s = ns;
+    } else if (upper) {
+      real = 0;
+    }
+  }
+  return real > 0 ? off : -1;
+}
+
+// K3: blocks [0, n_tiles), one 256-thread block per tile.
 __global__ void __launch_bounds__(kPix)
 rasterize_fwd_kernel(const float* __restrict__ frags, int f_stride,
                      const int* __restrict__ tile_start,
@@ -65,15 +189,21 @@ rasterize_fwd_kernel(const float* __restrict__ frags, int f_stride,
                      float bg_b, float cutoff_sq, int mode,
                      float* __restrict__ out) {
   __shared__ float s_frag[kRows][kBatch];
+  __shared__ unsigned s_box[kBatch];
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
+  const int lane = p & 31;
+  const int pix = pixel_of(p);
   // Tile-local pixel centre: the stream's x/y rows are tile-local.
-  const float px = static_cast<float>(p % kTile) + 0.5f;
-  const float py = static_cast<float>(p / kTile) + 0.5f;
+  const float px = static_cast<float>(pix % kTile) + 0.5f;
+  const float py = static_cast<float>(pix / kTile) + 0.5f;
+  int x0, x1, y0, y1;
+  warp_block(p >> 5, x0, x1, y0, y1);
   const int start = __ldg(tile_start + tile);
   const int len = __ldg(tile_len + tile);
-  const float ring_lo = cutoff_sq * 0.64f;
+  const float ring_lo = ring_lo_of(cutoff_sq);
+  const size_t fs = static_cast<size_t>(f_stride);
 
   float t = 1.0f;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -84,50 +214,42 @@ rasterize_fwd_kernel(const float* __restrict__ frags, int f_stride,
     // thread has finished reading it.
     if (__syncthreads_count(done) == kPix) break;
     const int count = min(kBatch, len - base);
-    if (p < count) {
-      const size_t col = static_cast<size_t>(start) + base + p;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        s_frag[r][p] = __ldg(frags + static_cast<size_t>(r) * f_stride + col);
-      }
-    }
+    stage_batch(frags, fs, static_cast<size_t>(start) + base, count, p,
+                cutoff_sq, mode, s_frag, s_box);
     __syncthreads();
-    if (done) continue;
-    for (int i = 0; i < count; ++i) {
-      float alpha, alpha_raw, g_exp, dx, dy;
-      if (!frag_alpha(s_frag, i, px, py, cutoff_sq, ring_lo, mode, alpha,
-                      alpha_raw, g_exp, dx, dy)) {
-        continue;
-      }
-      const float w = alpha * t;
-      acc_r += w * s_frag[5][i];
-      acc_g += w * s_frag[6][i];
-      acc_b += w * s_frag[7][i];
-      t *= 1.0f - alpha;
-      if (t <= kTMin) {
-        done = true;
-        break;
+    for (int c = 0; c < count; c += 32) {
+      unsigned hits = warp_hits(s_box, c, count, lane, x0, x1, y0, y1);
+      if (done) continue;
+      while (hits) {
+        const int i = c + __ffs(hits) - 1;
+        hits &= hits - 1;
+        float alpha, alpha_raw, g_exp, dx, dy;
+        if (!frag_alpha(s_frag, i, px, py, cutoff_sq, ring_lo, mode, alpha,
+                        alpha_raw, g_exp, dx, dy)) {
+          continue;
+        }
+        const float w = alpha * t;
+        acc_r += w * s_frag[5][i];
+        acc_g += w * s_frag[6][i];
+        acc_b += w * s_frag[7][i];
+        t *= 1.0f - alpha;
+        if (t <= kTMin) {
+          done = true;
+          break;
+        }
       }
     }
   }
 
   float* o = out + static_cast<size_t>(tile) * 4 * kPix;
-  o[0 * kPix + p] = acc_r + t * bg_r;
-  o[1 * kPix + p] = acc_g + t * bg_g;
-  o[2 * kPix + p] = acc_b + t * bg_b;
-  o[3 * kPix + p] = t;
+  o[0 * kPix + pix] = acc_r + t * bg_r;
+  o[1 * kPix + pix] = acc_g + t * bg_g;
+  o[2 * kPix + pix] = acc_b + t * bg_b;
+  o[3 * kPix + pix] = t;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-// Blocks [0, n_tiles) each differentiate one tile; the blocks after them
-// zero the stream's padding slots [live, f_stride), kTailSlots each.
+// K4: blocks [0, n_tiles) each differentiate one tile; the blocks after
+// them zero the stream's padding slots [live, f_stride), kTailSlots each.
 __global__ void __launch_bounds__(kPix)
 rasterize_bwd_kernel(const float* __restrict__ frags, int f_stride,
                      const int* __restrict__ tile_start,
@@ -138,7 +260,10 @@ rasterize_bwd_kernel(const float* __restrict__ frags, int f_stride,
                      float bg_b, float cutoff_sq, int mode,
                      float* __restrict__ dfrag) {
   __shared__ float s_frag[kRows][kBwdBatch];
-  __shared__ float s_part[kWarps][kRows][kBwdBatch];
+  __shared__ unsigned s_box[kBwdBatch];
+  // A warp's 9 sums of each fragment it wrote, and which it wrote.
+  __shared__ float s_part[kWarps][kBwdBatch][kRows];
+  __shared__ unsigned s_wrote[kWarps][kBwdChunks];
 
   const int p = threadIdx.x;
   const size_t fs = static_cast<size_t>(f_stride);
@@ -158,26 +283,30 @@ rasterize_bwd_kernel(const float* __restrict__ frags, int f_stride,
   const int tile = blockIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
-  const float px = static_cast<float>(p % kTile) + 0.5f;
-  const float py = static_cast<float>(p / kTile) + 0.5f;
+  const int pix = pixel_of(p);
+  const float px = static_cast<float>(pix % kTile) + 0.5f;
+  const float py = static_cast<float>(pix / kTile) + 0.5f;
+  int x0, x1, y0, y1;
+  warp_block(warp, x0, x1, y0, y1);
   const int start = __ldg(tile_start + tile);
   const int len = __ldg(tile_len + tile);
   const int drawn = __ldg(draw_len + tile);
-  const float ring_lo = cutoff_sq * 0.64f;
+  const float ring_lo = ring_lo_of(cutoff_sq);
+  const int row = reduce_scatter_row(lane);  // the sum this lane stores
 
   // Per-pixel inputs, as the JAX launcher prepares them
   // (rasterize.py:797-806).
   const float* o = out + static_cast<size_t>(tile) * 4 * kPix;
   const float* g = g_out + static_cast<size_t>(tile) * 4 * kPix;
-  const float g_r = g[0 * kPix + p];
-  const float g_g = g[1 * kPix + p];
-  const float g_b = g[2 * kPix + p];
-  const float t_f = o[3 * kPix + p];
-  const float gt_total = g[3 * kPix + p] + (g_r * bg_r + g_g * bg_g +
-                                            g_b * bg_b);
-  const float cbl_r = o[0 * kPix + p] - t_f * bg_r;
-  const float cbl_g = o[1 * kPix + p] - t_f * bg_g;
-  const float cbl_b = o[2 * kPix + p] - t_f * bg_b;
+  const float g_r = g[0 * kPix + pix];
+  const float g_g = g[1 * kPix + pix];
+  const float g_b = g[2 * kPix + pix];
+  const float t_f = o[3 * kPix + pix];
+  const float gt_total = g[3 * kPix + pix] + (g_r * bg_r + g_g * bg_g +
+                                              g_b * bg_b);
+  const float cbl_r = o[0 * kPix + pix] - t_f * bg_r;
+  const float cbl_g = o[1 * kPix + pix] - t_f * bg_g;
+  const float cbl_b = o[2 * kPix + pix] - t_f * bg_b;
   const float g_tail = gt_total * t_f;
 
   float t = 1.0f;
@@ -193,75 +322,83 @@ rasterize_bwd_kernel(const float* __restrict__ frags, int f_stride,
       break;
     }
     const int count = min(kBwdBatch, drawn - base);
-    if (p < count) {
-      const size_t col = static_cast<size_t>(start) + base + p;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        s_frag[r][p] = __ldg(frags + r * fs + col);
-      }
-    }
+    stage_batch(frags, fs, static_cast<size_t>(start) + base, count, p,
+                cutoff_sq, mode, s_frag, s_box);
     __syncthreads();
-    for (int i = 0; i < count; ++i) {
-      float v[kRows];
+    for (int c = 0; c < count; c += 32) {
+      unsigned hits = warp_hits(s_box, c, count, lane, x0, x1, y0, y1);
+      if (__all_sync(kFull, done)) hits = 0;
+      unsigned wrote = 0;
+      while (hits) {
+        const int b = __ffs(hits) - 1;
+        hits &= hits - 1;
+        const int i = c + b;
+        float v[kRows];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) v[r] = 0.0f;
-      bool blends = false;
-      float alpha, alpha_raw, g_exp, dx, dy;
-      if (!done && frag_alpha(s_frag, i, px, py, cutoff_sq, ring_lo, mode,
-                              alpha, alpha_raw, g_exp, dx, dy)) {
-        blends = true;
-        const float c_r = s_frag[5][i];
-        const float c_g = s_frag[6][i];
-        const float c_b = s_frag[7][i];
-        const float w = alpha * t;
-        v[5] = g_r * w;
-        v[6] = g_g * w;
-        v[7] = g_b * w;
-        a_r += w * c_r;
-        a_g += w * c_g;
-        a_b += w * c_b;
-        const float u = g_r * c_r + g_g * c_g + g_b * c_b;
-        const float g_s = g_r * (cbl_r - a_r) + g_g * (cbl_g - a_g) +
-                          g_b * (cbl_b - a_b);
-        const float one_minus = 1.0f - alpha;
-        // The 0.99 clamp kills the gradient of alpha.
-        const float dalpha = alpha_raw < kAlphaClamp
-                                 ? t * u - (g_s + g_tail) / one_minus
-                                 : 0.0f;
-        if (mode == 1) {
-          v[8] = dalpha;  // flat ring: only opacity takes gradient
-        } else {
-          const float op = s_frag[8][i];
-          const float d_q = -0.5f * op * (dalpha * g_exp);
-          const float d_qx = d_q * dx;
-          const float d_qy = d_q * dy;
-          v[0] = -2.0f * (s_frag[2][i] * d_qx + s_frag[3][i] * d_qy);
-          v[1] = -2.0f * (s_frag[3][i] * d_qx + s_frag[4][i] * d_qy);
-          v[2] = d_qx * dx;
-          v[3] = 2.0f * (d_qx * dy);
-          v[4] = d_qy * dy;
-          v[8] = dalpha * g_exp;
+        for (int r = 0; r < kRows; ++r) v[r] = 0.0f;
+        bool blends = false;
+        float alpha, alpha_raw, g_exp, dx, dy;
+        if (!done && frag_alpha(s_frag, i, px, py, cutoff_sq, ring_lo, mode,
+                                alpha, alpha_raw, g_exp, dx, dy)) {
+          blends = true;
+          const float c_r = s_frag[5][i];
+          const float c_g = s_frag[6][i];
+          const float c_b = s_frag[7][i];
+          const float w = alpha * t;
+          v[5] = g_r * w;
+          v[6] = g_g * w;
+          v[7] = g_b * w;
+          a_r += w * c_r;
+          a_g += w * c_g;
+          a_b += w * c_b;
+          const float u = g_r * c_r + g_g * c_g + g_b * c_b;
+          const float g_s = g_r * (cbl_r - a_r) + g_g * (cbl_g - a_g) +
+                            g_b * (cbl_b - a_b);
+          const float one_minus = 1.0f - alpha;
+          // The 0.99 clamp kills the gradient of alpha.
+          const float dalpha = alpha_raw < kAlphaClamp
+                                   ? t * u - (g_s + g_tail) / one_minus
+                                   : 0.0f;
+          if (mode == 1) {
+            v[8] = dalpha;  // flat ring: only opacity takes gradient
+          } else {
+            const float op = s_frag[8][i];
+            const float d_q = -0.5f * op * (dalpha * g_exp);
+            const float d_qx = d_q * dx;
+            const float d_qy = d_q * dy;
+            v[0] = -2.0f * (s_frag[2][i] * d_qx + s_frag[3][i] * d_qy);
+            v[1] = -2.0f * (s_frag[3][i] * d_qx + s_frag[4][i] * d_qy);
+            v[2] = d_qx * dx;
+            v[3] = 2.0f * (d_qx * dy);
+            v[4] = d_qy * dy;
+            v[8] = dalpha * g_exp;
+          }
+          t *= one_minus;  // K3's recurrence, in K3's order
+          if (t <= kTMin) done = true;
         }
-        t *= one_minus;  // K3's recurrence, in K3's order
-        if (t <= kTMin) done = true;
+        if (__any_sync(kFull, blends)) {
+          const float sum = reduce_scatter(v, lane);
+          if (row >= 0) s_part[warp][i][row] = sum;
+          wrote |= 1u << b;
+        }
       }
-      if (__any_sync(0xffffffffu, blends)) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) v[r] = warp_sum(v[r]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) s_part[warp][r][i] = v[r];
-      }
+      if (lane == 0) s_wrote[warp][c >> 5] = wrote;
     }
     __syncthreads();
     if (p < count) {
       const size_t col = static_cast<size_t>(start) + base + p;
+      unsigned wrote[kWarps];
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k) {
+        wrote[k] = (s_wrote[k][p >> 5] >> (p & 31)) & 1u;
+      }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         float sum = 0.0f;
 #pragma unroll
-        for (int k = 0; k < kWarps; ++k) sum += s_part[k][r][p];
+        for (int k = 0; k < kWarps; ++k) {
+          if (wrote[k]) sum += s_part[k][p][r];
+        }
         dfrag[r * fs + col] = sum;
       }
     }
@@ -295,7 +432,8 @@ GS_EXPORT int gs_rasterize_fwd(const float* frags, int f_stride,
 // draw_len: int32 [n_tiles] (the tiles cover the stream's live prefix in
 // order; draw_len is what K3 drew); out, g_out: f32 [n_tiles, 4, 256], K3's
 // output and its cotangent; dfrag: f32 [9, f_stride], every slot written.
-// n_tiles > 0, as above.
+// n_tiles > 0, as above. The grid is the tiles, then the blocks that zero
+// the padding slots.
 GS_EXPORT int gs_rasterize_bwd(const float* frags, int f_stride,
                                const int* tile_start, const int* tile_len,
                                const int* draw_len, int n_tiles,
@@ -303,8 +441,8 @@ GS_EXPORT int gs_rasterize_bwd(const float* frags, int f_stride,
                                float bg_r, float bg_g, float bg_b,
                                float cutoff_sq, int mode, float* dfrag,
                                void* stream) {
-  const int tail = (f_stride + kTailSlots - 1) / kTailSlots;
-  rasterize_bwd_kernel<<<n_tiles + tail, kPix, 0,
+  const int blocks = n_tiles + (f_stride + kTailSlots - 1) / kTailSlots;
+  rasterize_bwd_kernel<<<blocks, kPix, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       frags, f_stride, tile_start, tile_len, draw_len, n_tiles, out, g_out,
       bg_r, bg_g, bg_b, cutoff_sq, mode, dfrag);

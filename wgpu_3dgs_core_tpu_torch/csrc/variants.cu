@@ -21,6 +21,7 @@
 //                    __syncthreads_count exit; bit for bit K3's output;
 //      6 v6_notrans  v5 with expf replaced by 1 - q/2, arithmetic of the
 //                    same shape: v5 - v6 prices the transcendental.
+//    v5_full is K3's first design (no pixel-box cull), kept as its record.
 //    Levels 0-2 write their sum in channel 0 and zeros in 1-3; levels 3-6
 //    write K3's [4, 256] tile (RGB + T * background, then T). The TPU
 //    tool's v3_alpha_mxu, v4/v5_cumsum, v6_full_mxuacc and v9_nosum price
@@ -45,6 +46,12 @@
 //    The TPU tool's key transpose, one-hot build and HIGHEST contraction
 //    have no counterpart on the card.
 //
+// K4's first design (measurement only, like K10), kept as its record:
+//    rasterize_bwd_first_kernel, K4 before the pixel-box cull, where every
+//    pixel evaluates every fragment, a warp sums each of its 9 values with
+//    a 5-step butterfly per fragment and lane 0 makes the nine stores. It
+//    takes K4's arguments and gives its [9, F] gradients.
+//
 // What bounds them: K9's full level is K3's work (per-(pixel, fragment)
 // arithmetic, ~20 flops to evaluate and ~9 to blend); K10's full level is
 // K5's work (48 B per drawn slot, 36 B per row). Every level writes a result
@@ -54,6 +61,11 @@
 #include "common.cuh"
 
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = kPix / 32;
+constexpr int kBwdBatch = 128;    // K4 fragments staged per batch
+constexpr int kTailSlots = 4096;  // K4 padding slots zeroed per block
 
 // ------------------------------------------------------------------- K9
 
@@ -115,7 +127,7 @@ raster_level_kernel(const float* __restrict__ frags, int f_stride,
   const float py = static_cast<float>(p / kTile) + 0.5f;
   const int start = __ldg(tile_start + tile);
   const int len = __ldg(tile_len + tile);
-  const float ring_lo = cutoff_sq * 0.64f;
+  const float ring_lo = ring_lo_of(cutoff_sq);
 
   float t = 1.0f;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;  // levels 0-2: the sum
@@ -202,6 +214,160 @@ cudaError_t launch_raster_level(const float* frags, int f_stride,
       frags, f_stride, tile_start, tile_len, bg_r, bg_g, bg_b, cutoff_sq,
       mode, out);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------ K4's first design
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(kFull, v, off);
+  }
+  return v;
+}
+
+// K4's first design (csrc/rasterize.cu before the pixel-box cull): blocks
+// [0, n_tiles) each differentiate one tile, every pixel evaluating every
+// drawn fragment; the blocks after them zero the stream's padding slots.
+__global__ void __launch_bounds__(kPix)
+rasterize_bwd_first_kernel(const float* __restrict__ frags, int f_stride,
+                           const int* __restrict__ tile_start,
+                           const int* __restrict__ tile_len,
+                           const int* __restrict__ draw_len, int n_tiles,
+                           const float* __restrict__ out,
+                           const float* __restrict__ g_out, float bg_r,
+                           float bg_g, float bg_b, float cutoff_sq, int mode,
+                           float* __restrict__ dfrag) {
+  __shared__ float s_frag[kRows][kBwdBatch];
+  __shared__ float s_part[kWarps][kRows][kBwdBatch];
+
+  const int p = threadIdx.x;
+  const size_t fs = static_cast<size_t>(f_stride);
+
+  if (blockIdx.x >= n_tiles) {
+    const int live = __ldg(tile_start + n_tiles - 1) +
+                     __ldg(tile_len + n_tiles - 1);
+    const int s0 = (blockIdx.x - n_tiles) * kTailSlots;
+    const int s1 = min(s0 + kTailSlots, f_stride);
+    for (int s = max(s0, live) + p; s < s1; s += kPix) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) dfrag[r * fs + s] = 0.0f;
+    }
+    return;
+  }
+
+  const int tile = blockIdx.x;
+  const int lane = p & 31;
+  const int warp = p >> 5;
+  const float px = static_cast<float>(p % kTile) + 0.5f;
+  const float py = static_cast<float>(p / kTile) + 0.5f;
+  const int start = __ldg(tile_start + tile);
+  const int len = __ldg(tile_len + tile);
+  const int drawn = __ldg(draw_len + tile);
+  const float ring_lo = ring_lo_of(cutoff_sq);
+
+  const float* o = out + static_cast<size_t>(tile) * 4 * kPix;
+  const float* g = g_out + static_cast<size_t>(tile) * 4 * kPix;
+  const float g_r = g[0 * kPix + p];
+  const float g_g = g[1 * kPix + p];
+  const float g_b = g[2 * kPix + p];
+  const float t_f = o[3 * kPix + p];
+  const float gt_total = g[3 * kPix + p] + (g_r * bg_r + g_g * bg_g +
+                                            g_b * bg_b);
+  const float cbl_r = o[0 * kPix + p] - t_f * bg_r;
+  const float cbl_g = o[1 * kPix + p] - t_f * bg_g;
+  const float cbl_b = o[2 * kPix + p] - t_f * bg_b;
+  const float g_tail = gt_total * t_f;
+
+  float t = 1.0f;
+  float a_r = 0.0f, a_g = 0.0f, a_b = 0.0f;  // inclusive prefix colour
+  bool done = false;
+  int reduced = drawn;  // slots [start, start + reduced) get gradients
+
+  for (int base = 0; base < drawn; base += kBwdBatch) {
+    if (__syncthreads_count(done) == kPix) {
+      reduced = base;
+      break;
+    }
+    const int count = min(kBwdBatch, drawn - base);
+    if (p < count) {
+      const size_t col = static_cast<size_t>(start) + base + p;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        s_frag[r][p] = __ldg(frags + r * fs + col);
+      }
+    }
+    __syncthreads();
+    for (int i = 0; i < count; ++i) {
+      float v[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) v[r] = 0.0f;
+      bool blends = false;
+      float alpha, alpha_raw, g_exp, dx, dy;
+      if (!done && frag_alpha(s_frag, i, px, py, cutoff_sq, ring_lo, mode,
+                              alpha, alpha_raw, g_exp, dx, dy)) {
+        blends = true;
+        const float c_r = s_frag[5][i];
+        const float c_g = s_frag[6][i];
+        const float c_b = s_frag[7][i];
+        const float w = alpha * t;
+        v[5] = g_r * w;
+        v[6] = g_g * w;
+        v[7] = g_b * w;
+        a_r += w * c_r;
+        a_g += w * c_g;
+        a_b += w * c_b;
+        const float u = g_r * c_r + g_g * c_g + g_b * c_b;
+        const float g_s = g_r * (cbl_r - a_r) + g_g * (cbl_g - a_g) +
+                          g_b * (cbl_b - a_b);
+        const float one_minus = 1.0f - alpha;
+        const float dalpha = alpha_raw < kAlphaClamp
+                                 ? t * u - (g_s + g_tail) / one_minus
+                                 : 0.0f;
+        if (mode == 1) {
+          v[8] = dalpha;
+        } else {
+          const float op = s_frag[8][i];
+          const float d_q = -0.5f * op * (dalpha * g_exp);
+          const float d_qx = d_q * dx;
+          const float d_qy = d_q * dy;
+          v[0] = -2.0f * (s_frag[2][i] * d_qx + s_frag[3][i] * d_qy);
+          v[1] = -2.0f * (s_frag[3][i] * d_qx + s_frag[4][i] * d_qy);
+          v[2] = d_qx * dx;
+          v[3] = 2.0f * (d_qx * dy);
+          v[4] = d_qy * dy;
+          v[8] = dalpha * g_exp;
+        }
+        t *= one_minus;
+        if (t <= kTMin) done = true;
+      }
+      if (__any_sync(kFull, blends)) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) v[r] = warp_sum(v[r]);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) s_part[warp][r][i] = v[r];
+      }
+    }
+    __syncthreads();
+    if (p < count) {
+      const size_t col = static_cast<size_t>(start) + base + p;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kWarps; ++k) sum += s_part[k][r][p];
+        dfrag[r * fs + col] = sum;
+      }
+    }
+  }
+
+  for (int j = reduced + p; j < len; j += kPix) {
+    const size_t col = static_cast<size_t>(start) + j;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) dfrag[r * fs + col] = 0.0f;
+  }
 }
 
 // ------------------------------------------------------------------ K10
@@ -336,4 +502,24 @@ GS_EXPORT int gs_segsum_level(int level, int threads, const int* keys,
                                               n_rows, n, out, s);
   }
   return static_cast<int>(err);
+}
+
+// K4's first design over K4's arguments: frags f32 [9, f_stride];
+// tile_start, tile_len, draw_len int32 [n_tiles]; out, g_out f32
+// [n_tiles, 4, 256]; dfrag f32 [9, f_stride], every slot written.
+// n_tiles > 0.
+GS_EXPORT int gs_rasterize_bwd_first(const float* frags, int f_stride,
+                                     const int* tile_start,
+                                     const int* tile_len,
+                                     const int* draw_len, int n_tiles,
+                                     const float* out, const float* g_out,
+                                     float bg_r, float bg_g, float bg_b,
+                                     float cutoff_sq, int mode, float* dfrag,
+                                     void* stream) {
+  const int blocks = n_tiles + (f_stride + kTailSlots - 1) / kTailSlots;
+  rasterize_bwd_first_kernel<<<blocks, kPix, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      frags, f_stride, tile_start, tile_len, draw_len, n_tiles, out, g_out,
+      bg_r, bg_g, bg_b, cutoff_sq, mode, dfrag);
+  return static_cast<int>(cudaGetLastError());
 }

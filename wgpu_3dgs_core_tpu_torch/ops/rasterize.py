@@ -8,7 +8,10 @@ and composites the background; :func:`rasterize_tiles_bwd` (replaces
 ``_bwd_kernel``) turns the cotangent of that output into per-fragment
 gradients. On CUDA tensors both launch ``csrc/rasterize.cu``; on CPU
 tensors they run :func:`rasterize_tiles_fwd_plain` and
-:func:`rasterize_tiles_bwd_plain`.
+:func:`rasterize_tiles_bwd_plain`. Both kernels skip, a warp at a time,
+the fragments whose conservative pixel box (:func:`frag_pixel_box_plain`,
+``csrc/blend.cuh``'s ``frag_pixel_box``) misses the warp's pixels, which
+changes no output: outside the box ``_frag_alpha`` rejects every pixel.
 
 Stream layout: f32 [9, F] rows x, y (TILE-LOCAL: shifted by the owning
 tile's pixel origin, as the JAX renderer does before its kernel, so dx/dy
@@ -57,6 +60,15 @@ def blend_weights(alpha_sorted: torch.Tensor, dim: int = 0):
     return w.movedim(0, dim), t_final
 
 
+def _clamp_alpha(alpha_raw):
+    """min(alpha_raw, ALPHA_CLAMP) with the gradient of the kernels and of
+    the TPU kernel (its ``alpha_raw < ALPHA_CLAMP`` mask): 0 wherever the
+    clamp is reached, a tie included (torch's ``clamp_max`` passes the
+    whole gradient at a tie, ``jnp.minimum`` half)."""
+    return torch.where(alpha_raw < ALPHA_CLAMP, alpha_raw,
+                       torch.clamp_max(alpha_raw, ALPHA_CLAMP).detach())
+
+
 def _frag_alpha(f, px, py, cutoff_sq, mode):
     """Per-(fragment, pixel) alpha and keep-mask; ``f`` [9, ..., 1]."""
     dx = px - f[0]
@@ -64,12 +76,75 @@ def _frag_alpha(f, px, py, cutoff_sq, mode):
     q = f[2] * (dx * dx) + 2.0 * f[3] * (dx * dy) + f[4] * (dy * dy)
     op = f[8]
     if mode == 1:
-        alpha = torch.clamp_max(op, ALPHA_CLAMP).expand_as(q)
+        alpha = _clamp_alpha(op).expand_as(q)
         ok = (q <= cutoff_sq) & (q >= cutoff_sq * ELLIPSE_RING)
     else:
-        alpha = torch.clamp_max(op * torch.exp(-0.5 * q), ALPHA_CLAMP)
+        alpha = _clamp_alpha(op * torch.exp(-0.5 * q))
         ok = q <= cutoff_sq
     return alpha, ok & (alpha >= ALPHA_MIN)
+
+
+# frag_pixel_box's constants (csrc/blend.cuh, where they are derived).
+BOX_GAMMA = 5e-7
+BOX_GAMMA_MAX = 0.5
+BOX_REL = 1e-5
+BOX_ABS = 1e-4
+BOX_EMPTY = (16, 0)  # (lo, hi) of both axes of a box no pixel is in
+
+
+def frag_pixel_box_plain(frags, cutoff_sq: float = Q_CUTOFF,
+                         mode: int = 0) -> torch.Tensor:
+    """The conservative pixel box of each fragment of ``frags`` [9, F], in
+    f32 as ``csrc/blend.cuh::frag_pixel_box`` computes it: int32 [4, F]
+    rows x_lo, x_hi, y_lo, y_hi, the tile-local pixel columns and rows
+    outside which ``_frag_alpha`` rejects the fragment at every pixel
+    centre. The whole tile [0, 15] x [0, 15] where the fragment's values
+    are not finite or its conic is not positive definite or too thin to
+    bound, ``BOX_EMPTY`` on both axes where no pixel can keep it."""
+    f32 = frags.dtype
+
+    def k(v):
+        return torch.tensor(v, dtype=f32, device=frags.device)
+
+    one, rel = k(1.0), k(BOX_REL)
+    x, y, a, b, c, op = (frags[r] for r in (0, 1, 2, 3, 4, 8))
+    finite = torch.stack([torch.isfinite(v) for v in (x, y, a, b, c, op)]
+                         ).all(dim=0)
+    if mode == 1:
+        never = ~(op >= k(ALPHA_MIN))
+        r = torch.full_like(op, cutoff_sq)
+    else:
+        never = ~(op > 0.0)
+        la = k(2.0) * torch.log(op * k(255.0))
+        r = torch.minimum(k(cutoff_sq), la + rel * (la.abs() + one))
+    ac = a * c
+    bb = b * b
+    s = ac + bb
+    det = (ac - bb) - k(4.0 * BOX_GAMMA) * s
+    g = k(BOX_GAMMA) * k(2.0) * s / det * (one + rel)
+    bounded = (a > 0.0) & (c > 0.0) & (det > 0.0) & (g <= k(BOX_GAMMA_MAX))
+    rq = r / (one - g) * (one + rel)
+    ex = torch.sqrt(rq * c / det) * (one + rel)
+    ey = torch.sqrt(rq * a / det) * (one + rel)
+    half = k(0.5)
+    mx = rel * (x.abs() + ex) + k(BOX_ABS)
+    my = rel * (y.abs() + ey) + k(BOX_ABS)
+    lo_x = torch.clamp_min(torch.ceil(x - ex - half - mx), 0.0)
+    hi_x = torch.clamp_max(torch.floor(x + ex - half + mx), 15.0)
+    lo_y = torch.clamp_min(torch.ceil(y - ey - half - my), 0.0)
+    hi_y = torch.clamp_max(torch.floor(y + ey - half + my), 15.0)
+    meets = (lo_x <= hi_x) & (lo_y <= hi_y)
+    full = ~finite | (~never & ~bounded)
+    empty = ~full & (never | (r < 0.0) | ~meets)
+    box = torch.stack([lo_x, hi_x, lo_y, hi_y])
+    box = torch.where(full, torch.tensor([[0.0], [15.0], [0.0], [15.0]],
+                                         dtype=f32, device=frags.device),
+                      box)
+    lo, hi = BOX_EMPTY
+    box = torch.where(empty, torch.tensor([[lo], [hi], [lo], [hi]],
+                                          dtype=f32, device=frags.device),
+                      box)
+    return box.to(torch.int32)
 
 
 def _tile_batches(tile_start, tile_len, tiles):
@@ -190,6 +265,17 @@ RASTERIZE_BWD = CudaKernel(
 )
 
 
+def check_bwd_args(frags, tile_start, tile_len, draw_len, out, g_out):
+    """Validate K4's tensor arguments (dtypes, shapes, layout)."""
+    n_t = tile_start.shape[0]
+    check(frags, "frags", torch.float32, (FRAG_ROWS, None))
+    for name, t in (("tile_start", tile_start), ("tile_len", tile_len),
+                    ("draw_len", draw_len)):
+        check(t, name, torch.int32, (n_t,))
+    check(out, "out", torch.float32, (n_t, 4, PIX))
+    check(g_out, "g_out", torch.float32, (n_t, 4, PIX))
+
+
 def rasterize_tiles_bwd(frags, tile_start, tile_len, draw_len, out, g_out,
                         bg, cutoff_sq: float = Q_CUTOFF,
                         mode: int = 0) -> torch.Tensor:
@@ -202,18 +288,13 @@ def rasterize_tiles_bwd(frags, tile_start, tile_len, draw_len, out, g_out,
     slot is written, and slots not drawn, drawn after their tile
     saturated, or past the live prefix are exact zeros.
     """
-    n_t = tile_start.shape[0]
-    check(frags, "frags", torch.float32, (FRAG_ROWS, None))
-    for name, t in (("tile_start", tile_start), ("tile_len", tile_len),
-                    ("draw_len", draw_len)):
-        check(t, name, torch.int32, (n_t,))
-    check(out, "out", torch.float32, (n_t, 4, PIX))
-    check(g_out, "g_out", torch.float32, (n_t, 4, PIX))
+    check_bwd_args(frags, tile_start, tile_len, draw_len, out, g_out)
     if on_cpu(frags, tile_start, tile_len, draw_len, out, g_out):
         return rasterize_tiles_bwd_plain(frags, tile_start, tile_len,
                                          draw_len, out, g_out, bg, cutoff_sq,
                                          mode)
     dev = frags.device
+    n_t = tile_start.shape[0]
     dfrag = torch.empty_like(frags)
     RASTERIZE_BWD.launch(
         frags.data_ptr(), frags.shape[1], tile_start.data_ptr(),

@@ -1,6 +1,7 @@
 """Variant kernels of the measurement path: K9 (the forward rasterizer K3
-stripped level by level) and K10 (the segment sums of K5's first design,
-a warp per row, stripped level by level), with their plain versions.
+stripped level by level), K4's first design and K10 (the segment sums of
+K5's first design, a warp per row, stripped level by level), with their
+plain versions.
 
 K9 (:func:`rasterize_level`, replaces ``tools/bench_kernel_variants.py::
 run_variant``) and K10 (:func:`segment_sums_level`, replaces
@@ -12,7 +13,10 @@ them (``tools/bench_kernel_variants.py``, ``tools/bench_segsum.py``).
 
 K9's levels take K3's arguments and give a [T, 4, 256] tile: v0_stage,
 v1_q and v2_alpha their per-pixel sum in channel 0 (channels 1-3 zero);
-v3_trans, v4_color, v5_full (K3 bit for bit) and v6_notrans a K3 tile.
+v3_trans, v4_color and v6_notrans a K3 tile; v5_full, K3's first design
+(no pixel-box cull), K3's tile bit for bit.
+:func:`rasterize_bwd_first` runs K4's first design, before the cull and
+the reduce-scatter, over K4's arguments.
 K10's levels take K5's arguments and give [9, rows]; s0_stream and
 s1_search read the gradients in key order (:func:`level_operand`).
 """
@@ -32,6 +36,8 @@ from .rasterize import (
     _frag_alpha,
     _tile_batches,
     blend_weights,
+    check_bwd_args,
+    rasterize_tiles_bwd_plain,
     rasterize_tiles_fwd_plain,
 )
 from .segreduce import GRAD_ROWS, segment_sums_sorted_plain
@@ -134,6 +140,37 @@ def rasterize_level(name: str, frags, tile_start, tile_len, bg,
         out.data_ptr(), work=n_t, device=dev,
     )
     return out
+
+
+# ------------------------------------------------- K4's first design
+
+RASTERIZE_BWD_FIRST = CudaKernel(
+    "rasterize_bwd_first", "gs_rasterize_bwd_first",
+    [P, I, P, P, P, I, P, P, F, F, F, F, I, P],
+)
+
+
+def rasterize_bwd_first(frags, tile_start, tile_len, draw_len, out, g_out,
+                        bg, cutoff_sq: float = Q_CUTOFF,
+                        mode: int = 0) -> torch.Tensor:
+    """K4's first design over K4's arguments (as
+    ``ops/rasterize.py::rasterize_tiles_bwd`` takes them). Returns [9, F]
+    f32; on CPU tensors K4's plain version."""
+    check_bwd_args(frags, tile_start, tile_len, draw_len, out, g_out)
+    if on_cpu(frags, tile_start, tile_len, draw_len, out, g_out):
+        return rasterize_tiles_bwd_plain(frags, tile_start, tile_len,
+                                         draw_len, out, g_out, bg, cutoff_sq,
+                                         mode)
+    dev = frags.device
+    dfrag = torch.empty_like(frags)
+    RASTERIZE_BWD_FIRST.launch(
+        frags.data_ptr(), frags.shape[1], tile_start.data_ptr(),
+        tile_len.data_ptr(), draw_len.data_ptr(), tile_start.shape[0],
+        out.data_ptr(), g_out.data_ptr(), float(bg[0]), float(bg[1]),
+        float(bg[2]), float(cutoff_sq), int(mode), dfrag.data_ptr(),
+        work=tile_start.shape[0], device=dev,
+    )
+    return dfrag
 
 
 # ------------------------------------------------------------------- K10

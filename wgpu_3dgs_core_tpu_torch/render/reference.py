@@ -116,12 +116,15 @@ def render_reference(
     q = (conic[:, 0:1] * dx * dx + 2.0 * conic[:, 1:2] * dx * dy
          + conic[:, 2:3] * dy * dy)
     cutoff_sq = float(max_std_dev) ** 2
+    # torch.minimum, as jnp.minimum, gives a tie with the clamp half the
+    # gradient (clamp_max would give all of it).
+    clamp = torch.tensor(ALPHA_CLAMP, device=dev)
     if display_mode == 1:  # ellipse outline: opaque ring at the boundary
-        alpha = torch.clamp_max(a[:, None], ALPHA_CLAMP).expand_as(q)
+        alpha = torch.minimum(a[:, None], clamp).expand_as(q)
         ok = ((q <= cutoff_sq) & (q >= cutoff_sq * ELLIPSE_RING)
               & (alpha >= ALPHA_MIN))
     else:
-        alpha = torch.clamp_max(a[:, None] * torch.exp(-0.5 * q), ALPHA_CLAMP)
+        alpha = torch.minimum(a[:, None] * torch.exp(-0.5 * q), clamp)
         ok = (q <= cutoff_sq) & (alpha >= ALPHA_MIN)
     alpha = torch.where(ok, alpha, 0.0)
 

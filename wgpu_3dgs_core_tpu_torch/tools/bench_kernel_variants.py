@@ -32,6 +32,8 @@ and lane-tree sums K3 does not do, and have no level here.
 
 The stream is the port bench's scene binned by the port's own render
 path (capacities measured for it, ``pad_slack`` 0.65).
+
+:func:`hard_tiles` gives the tiles the pixel-box cull finds hard.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import argparse
 import json
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..bench import bench_camera, synthetic_scene
@@ -50,7 +53,13 @@ from ..ops.binning import (
     pad_schedule,
     padded_capacity,
 )
-from ..ops.rasterize import Q_CUTOFF
+from ..ops.rasterize import (
+    ALPHA_MIN,
+    FRAG_ROWS,
+    PIX,
+    Q_CUTOFF,
+    frag_pixel_box_plain,
+)
 from ..ops.variants import RASTER_LEVELS, rasterize_level
 from ..render.renderer import (
     measure_capacities,
@@ -81,6 +90,163 @@ def bench_stream(scene, camera, max_fragments: int, max_rows: int,
             f_cap, tiles_x * tiles_y, pad_slack))
         frags = tile_local_stream(attrs_sorted, stream.tile_id, tiles_x)
     return frags, stream.tile_start, sched.draw_len, tuple(background)
+
+
+HARD_TILES = ("box_edge", "thin_45", "opacity", "cover", "saturate",
+              "ring", "tie")
+
+
+def _conic(sx, sy, angle):
+    """The conic (a, b, c) of a 2D gaussian with standard deviations sx, sy
+    along axes turned by ``angle``, in f64."""
+    cs, sn = np.cos(angle), np.sin(angle)
+    ia, ib = 1.0 / sx ** 2, 1.0 / sy ** 2
+    return (ia * cs * cs + ib * sn * sn, (ia - ib) * cs * sn,
+            ia * sn * sn + ib * cs * cs)
+
+
+def _edge_opacity(q):
+    """The opacities at which 2 ln(255 op) = q, and the f32 values one
+    step below and above each."""
+    op = (np.exp(np.asarray(q, np.float64) / 2.0) / 255.0).astype(np.float32)
+    return np.concatenate([op, np.nextafter(op, np.float32(0.0)),
+                           np.nextafter(op, np.float32(1.0))])
+
+
+def hard_tiles(device="cpu", seed: int = 0):
+    """Tiles the pixel-box cull of K3 and K4 finds hard, in K3's stream
+    form, each set a few tiles of a few hundred fragments: pixel centres
+    exactly on a box edge (q at a pixel exactly cutoff^2 or 2 ln(255 op));
+    thin ellipses at 45 degrees with (ac + b^2) / det from 10 to 2e6;
+    opacities one f32 step either side of 1/255 and of the ones where
+    2 ln(255 op) passes a pixel centre; splats covering the whole tile;
+    saturation inside a batch and exactly at K4's and K3's batch ends
+    (fragments 127, 128, 255, 256); ELLIPSE rings whose edges pass through
+    pixel centres; alphas exactly on the 0.99 clamp (op 0.99 centred on a
+    pixel centre, and every ELLIPSE ring pixel of such a fragment), where
+    the kernels give alpha no gradient. Returns {name: (frags [9, F] f32,
+    tile_start, tile_len int32 [T])}; every fragment is drawn."""
+    out = {}
+    for k, name in enumerate(HARD_TILES):
+        rng = np.random.default_rng(seed + k)
+        tiles = []
+        if name in ("box_edge", "opacity", "ring"):
+            for _ in range(6):
+                n = 200
+                # Centres on pixel centres and edges; pixel deltas then
+                # fall on multiples of 0.5.
+                x = rng.integers(-8, 48, n) / 2.0
+                y = rng.integers(-8, 48, n) / 2.0
+                if name == "box_edge":
+                    s = rng.choice([1.0 / 3.0, 0.5, 1.0, 1.5, 2.0], (2, n))
+                    a, b, c = _conic(s[0], s[1], 0.0)
+                    op = rng.choice(np.concatenate(
+                        [_edge_opacity([1.0, 2.0, 4.0, 5.0, 8.0, 9.0]),
+                         [0.5, 0.9, 0.98]]), n)
+                elif name == "opacity":
+                    a, b, c = _conic(np.ones(n), np.ones(n), 0.0)
+                    lo = np.float32(ALPHA_MIN)
+                    op = rng.choice(np.concatenate(
+                        [_edge_opacity([0.25, 0.5, 1.0, 1.25, 2.0, 4.25]),
+                         [np.nextafter(lo, np.float32(0.0)), lo,
+                          np.nextafter(lo, np.float32(1.0))]]), n)
+                else:  # rings: q = 0.64 * 9 or 9 at pixel deltas
+                    d = rng.choice([1.0, 1.5, 2.0, 2.5, 3.0, 4.0], (2, n))
+                    q = rng.choice([0.64 * Q_CUTOFF, Q_CUTOFF], (2, n))
+                    a, b, c = _conic(d[0] / np.sqrt(q[0]),
+                                     d[1] / np.sqrt(q[1]), 0.0)
+                    op = rng.uniform(0.05, 0.6, n)
+                tiles.append((x, y, a, b, c, op))
+        elif name == "thin_45":
+            for ratio in (1e1, 1e3, 1e5, 5e5, 1e6, 2e6):
+                n = 120
+                lam = rng.uniform(0.5, 4.0, n)
+                angle = np.pi / 4 + rng.choice([0.0, 1e-4, -1e-3], n)
+                a, b, c = _conic(1.0 / np.sqrt(lam),
+                                 1.0 / np.sqrt(lam / (2.0 * ratio)), angle)
+                x = rng.uniform(-4.0, 20.0, n)
+                y = rng.uniform(-4.0, 20.0, n)
+                tiles.append((x, y, a, b, c, rng.uniform(0.02, 0.99, n)))
+        elif name == "cover":
+            for _ in range(4):
+                n = 150
+                s = rng.choice([8.0, 20.0, 50.0], n)
+                a, b, c = _conic(s, s * rng.uniform(0.5, 1.0, n),
+                                 rng.uniform(0, np.pi, n))
+                x = rng.choice([8.0, -10.0, 30.0], n) + rng.normal(0, 2, n)
+                y = rng.choice([8.0, -10.0, 30.0], n) + rng.normal(0, 2, n)
+                tiles.append((x, y, a, b, c, rng.uniform(0.01, 0.3, n)))
+        elif name == "tie":
+            for _ in range(4):
+                # One fragment in four at op 0.99 on a pixel centre, so
+                # alpha_raw = 0.99 exp(0) ties the clamp there; the rest
+                # light enough that the ties are not all occluded.
+                n = 60
+                x = rng.integers(0, 16, n) + 0.5
+                y = rng.integers(0, 16, n) + 0.5
+                s = rng.choice([0.75, 1.0, 2.0], (2, n))
+                a, b, c = _conic(s[0], s[1], rng.uniform(0, np.pi, n))
+                op = np.where(rng.random(n) < 0.25, np.float32(0.99),
+                              rng.uniform(0.05, 0.4, n))
+                tiles.append((x, y, a, b, c, op))
+        else:  # saturate: T crosses 1e-4 at fragment 100, 127, 128, 255, 256
+            for at in (100, 127, 128, 256, 257):
+                # Near-flat splats: alpha 0.02 (T 0.98^k), then two at the
+                # 0.99 clamp; the second, or the first once T < 0.01, ends
+                # the blend at every pixel.
+                n = at + 40
+                op = np.full(n, 0.02)
+                op[at - 1:at + 1] = 1.0
+                a, b, c = _conic(np.full(n, 200.0), np.full(n, 160.0), 0.3)
+                x = 8.0 + rng.normal(0, 0.5, n)
+                y = 8.0 + rng.normal(0, 0.5, n)
+                tiles.append((x, y, a, b, c, op))
+        cols = []
+        for x, y, a, b, c, op in tiles:
+            rgb = rng.random((3, len(x)))
+            cols.append(np.stack([x, y, a, b, c, *rgb, op]).astype(np.float32))
+        lens = np.array([col.shape[1] for col in cols], np.int32)
+        start = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+        frags = np.concatenate(cols, axis=1)
+        assert frags.shape[0] == FRAG_ROWS
+        out[name] = tuple(torch.from_numpy(t).to(device)
+                          for t in (frags, start, lens))
+    return out
+
+
+def warp_pixels() -> torch.Tensor:
+    """The row-major pixels of each warp's lanes in K3 and K4, int64
+    [8, 32], as ``csrc/rasterize.cu::pixel_of`` maps them: warp w on an
+    8x4 block, columns 8 (w % 2) .. + 7 and rows 4 (w // 2) .. + 3."""
+    p = torch.arange(PIX)
+    w, lane = p // 32, p % 32
+    return (((w // 2) * 4 + lane // 8) * 16 + (w % 2) * 8 + lane % 8
+            ).reshape(8, 32)
+
+
+def cull_counts(frags, tile_start, draw_len, cutoff_sq: float = Q_CUTOFF,
+                mode: int = 0) -> tuple[int, int]:
+    """The (warp, fragment) pairs of the drawn fragments that the pixel-box
+    cull of K3 and K4 keeps and skips: a warp keeps a fragment when the
+    fragment's box (``frag_pixel_box_plain``) meets its pixels. Returns
+    (kept, skipped)."""
+    dev = frags.device
+    lens = draw_len.long()
+    drawn = int(lens.sum())
+    tile_of = torch.repeat_interleave(torch.arange(lens.shape[0], device=dev),
+                                      lens)
+    first = torch.cumsum(lens, 0) - lens
+    slots = (tile_start.long()[tile_of]
+             + torch.arange(drawn, device=dev) - first[tile_of])
+    box = frag_pixel_box_plain(frags[:, slots], cutoff_sq, mode)  # [4, D]
+    pix = warp_pixels().to(dev)
+    cols, rows = pix % 16, pix // 16
+    x0, x1 = cols.amin(dim=1), cols.amax(dim=1)
+    y0, y1 = rows.amin(dim=1), rows.amax(dim=1)
+    hits = ((box[0, :, None] <= x1) & (box[1, :, None] >= x0)
+            & (box[2, :, None] <= y1) & (box[3, :, None] >= y0))
+    kept = int(hits.sum())
+    return kept, 8 * drawn - kept
 
 
 def run(frags, tile_start, tile_len, bg, cutoff_sq: float = Q_CUTOFF,
