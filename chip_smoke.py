@@ -17,8 +17,11 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    in different orders;
 4. render the bench scene (1,000,000 gaussians, 1920x1080, sh_deg 3,
    pad_slack 0.65) through render_gaussians, check it, show that each
-   forward kernel ran on that path, and time it and each kernel beside its
-   plain version (median of 10 after 2 warm-ups, CUDA events);
+   forward kernel ran on that path, and time it (median of 10 after 2
+   warm-ups, CUDA events) and each kernel: its device time (device_ms: the
+   median over 10 back-to-back calls of the device operations one call
+   launches, by torch.profiler), one call by CUDA events (what a caller
+   pays, the wrapper's host work included) and its plain version;
 5. profile the bench-scene forward: host enqueue time against wall time
    of back-to-back forwards, and torch.profiler's device kernels per
    forward (count, time, time by kind);
@@ -41,8 +44,9 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    overflow, finite gradients, all six kernels launched on that path) and
    timed beside the forward; three Adam steps of make_train_step on
    TrainableGaussians at the same size; each backward kernel held against
-   its plain version and timed beside it and, for K5 and K6, beside the
-   one PyTorch call that computes the same function; K4 within 1e-4 of
+   its plain version and timed as in phase 4 and, for K5 and K6, beside
+   the device time of the one PyTorch call that computes the same
+   function (segment_reduce; torch.zeros + index_copy_); K4 within 1e-4 of
    its first design (ops/variants.py::rasterize_bwd_first) on the bench
    stream and the hard tiles;
 9. the profile of phase 5 for the training step;
@@ -50,8 +54,11 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     tail): every bundle shape of tests/test_kernel_bundle.py (map_add,
     constants, both resource-ownership states, update_resources, several
     groups and outputs, [N, 8] rows, entry points, a config-specialised
-    kernel), f16/i8/u8 casts and 3-byte rows at an odd address, each
-    against the plain launcher on CPU copies of its inputs, bit for bit;
+    kernel), f16/i8/u8 casts, 3-byte rows at an odd address and a map_add
+    of 1,000 items (below one tile), each against the plain launcher on CPU
+    copies of its inputs and against K8's first design
+    (ops/variants.py::bundle_dispatch_first), bit for bit, with each one's
+    tile plan;
 11. the core layer's compute path at full width: the bench scene's 1M
     gaussians packed in each of the 12 layouts, uploaded into a
     GaussiansBuffer, unpacked by a layout-specialised bundle through
@@ -61,13 +68,19 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     of the buffer updated in place and unpacked again; download_packed
     equal to the host pack bit for bit; download_gaussians round-tripping
     the 3 reversible layouts and raising IrreversibleConfigError on the 9
-    others. The SINGLE/ROT_SCALE unpack is timed beside its plain version,
-    and a map_add bundle over 2^24 f32 items beside torch.add;
+    others; every unpack bit for bit that of K8's first design. The
+    SINGLE/ROT_SCALE unpack and a map_add bundle over 2^24 f32 items are
+    timed in turns with K8's first design and torch.add (median of 3
+    device_ms), and by one call each; the host's enqueue per dispatch
+    (bundle-owned and caller-managed resources) beside torch.add's, and
+    the tile plans;
 12. K7: one-level bin_splats of the mid scene and of the bench scene's
     projection at 1920x1080 (capacity: count_fragments x 1.5 rounded up
     to 512), no overflow, every FragmentStream field equal to the same
-    binning on the CPU, K7 bit for bit against its plain version, and
-    timed beside it;
+    binning on the CPU, K7 bit for bit against its plain version and its
+    first design (ops/variants.py::expand_fragments_first) there and on
+    the hard tables of tools/expand_tables.py, and timed in turns with its
+    first design (median of 3 device_ms) and beside its plain version;
 13. K11, the live-bound launch probe (tools/probe_dyngrid.py): its three
     launch forms (a capacity grid, a host readback, a device launch) write
     x + 1 on the live prefix and leave the tail untouched, at 3 and 8 of 8
@@ -100,9 +113,11 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     blending warp events.
 
 Then a JSON line of the kernels (launches on the training step, for K7 and
-K8 on phases 11-12, for K9-K11 on the tools' runs of phases 13-15; errors,
-times, and the bound: the least time the card could take for the same
-work; K9 and K10 take their full level's, K3's and K5's), the card's name
+K8 on phases 11-12, for K9-K11 on the tools' runs of phases 13-15; errors;
+"ms" the device time (device_ms; for K7 and K8 in turns), "call_ms" one
+call by CUDA events, "library_ms" the library call's device time; and the
+bound: the least time the card could take for the same work; K9 and K10
+take their full level's, K3's and K5's), the card's name
 and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero; so
 does a machine without a CUDA card. The run uses one card: the first that
@@ -125,7 +140,6 @@ os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from wgpu_3dgs_core_tpu_torch import (  # noqa: E402
     ALL_LAYOUTS,
@@ -160,6 +174,10 @@ from wgpu_3dgs_core_tpu_torch.ops import probe as pr  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import variants as va  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import expand as ex  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import unpack_bundle as ub  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.ops.kernel_bundle import (  # noqa: E402
+    tile_plan,
+    tile_smem,
+)
 from wgpu_3dgs_core_tpu_torch.ops import rasterize as ra  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import segreduce as sr  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops.transforms import (  # noqa: E402
@@ -191,10 +209,16 @@ from wgpu_3dgs_core_tpu_torch.render.renderer import (  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.tools import (  # noqa: E402
     bench_kernel_variants as k9,
     bench_segsum as k10,
+    expand_tables,
     grad_parity,
     probe_dyngrid as k11,
 )
 from wgpu_3dgs_core_tpu_torch.utils.numeric import cast_u8  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.utils.profiling import (  # noqa: E402
+    PROFILER_STATS,
+    device_calls,
+    device_kernel_ms,
+)
 
 MID = dict(n=65_536, width=512, height=512, seed=0)
 SPEC = dict(n=2_500, width=256, height=192, seed=3)
@@ -222,11 +246,12 @@ GRAD_TOL = 1e-4
 # torch does, so 0 is expected); every other bundle output bit for bit.
 SIGMA_TOL = 1e-6
 BUNDLE_N = 66_773  # phase 10's items: not a multiple of any block size
+BUNDLE_FEW = 1_000  # phase 10's map_add below one tile (4,096 items)
 MAP_ADD_N = 1 << 24  # phase 11's map_add beside torch.add
-# Back-to-back calls per timing sample of K7, K8 and their yardsticks, and
-# of phase 14's K5 beside its old design and segment_reduce: a bundle
-# dispatch's Python enqueue (phase 11 prints it) is as long as a short
-# map's kernel, and K5's wrapper allocates its scratch before launching.
+# Back-to-back calls per sample of the host's enqueue (phase 11), of the
+# plain versions of K7, K8 and K11, and of phase 14's K5 beside its old
+# design and segment_reduce by CUDA events (K5's wrapper allocates its
+# scratch before launching).
 REPS = 20
 # Phase 11's model transform (tests/test_torch_ops.py's).
 MODEL = ModelTransform(pos=(0.3, -0.2, 0.5), rot=(0.1, 0.2, 0.3, 0.927),
@@ -317,17 +342,41 @@ def cuda_ms(fn, warmup=2, iters=10, reps=1) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, warmup=2, iters=10) -> float:
+    """Median device time of one call of ``fn``, in ms: torch.profiler over
+    ``iters`` back-to-back calls, the device operations (kernels, copies,
+    fills) of each call summed, without the host's time between them (the
+    way phases 5 and 9 read kernels). utils/profiling.py::device_calls
+    splits the trace by call and re-runs a session that lost operations."""
+    for _ in range(warmup):
+        fn()
+    return device_kernel_ms(fn, iters=iters)
+
+
 def enqueue_ms(fn, reps=10) -> float:
     """Host time to enqueue one call of ``fn`` (no synchronise between
-    calls), in ms: where it is near a kernel's time, the host paces it."""
+    calls), in ms: the median over 7 runs of ``reps`` calls (one run reads
+    up to 2x another on a shared host). Where it is near a kernel's time,
+    the host paces it."""
     fn()
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / reps)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) * 1e3 / reps
+    return statistics.median(times)
+
+
+def kernel_times(kernel, plain, library=None):
+    """A kernel row's times, in ms: (its device time, its plain version's
+    time by CUDA events, the library call's device time or None, one call
+    of the kernel by CUDA events: what a caller pays, the wrapper's host
+    work included)."""
+    return (device_ms(kernel), cuda_ms(plain),
+            None if library is None else device_ms(library), cuda_ms(kernel))
 
 
 def kernel_inputs(args, cam, max_fragments, max_rows, pad_slack, sh_deg=3,
@@ -592,14 +641,14 @@ def phase_full(device, errs, scene):
     fwd_ms = cuda_ms(forward)
     k1, k2, k3 = inp["k1"], inp["k2"], inp["k3"]
     ms = {
-        "expand_rows": (cuda_ms(lambda: ex.expand_rows(*k1)),
-                        cuda_ms(lambda: ex.expand_rows_plain(*k1)), None),
-        "expand_fragments": (
-            cuda_ms(lambda: ex.expand_fragments_with_attrs(*k2)),
-            cuda_ms(lambda: ex.expand_fragments_with_attrs_plain(*k2)), None),
-        "rasterize_fwd": (cuda_ms(lambda: ra.rasterize_tiles_fwd(*k3)),
-                          cuda_ms(lambda: ra.rasterize_tiles_fwd_plain(*k3)),
-                          None),
+        "expand_rows": kernel_times(lambda: ex.expand_rows(*k1),
+                                    lambda: ex.expand_rows_plain(*k1)),
+        "expand_fragments": kernel_times(
+            lambda: ex.expand_fragments_with_attrs(*k2),
+            lambda: ex.expand_fragments_with_attrs_plain(*k2)),
+        "rasterize_fwd": kernel_times(
+            lambda: ra.rasterize_tiles_fwd(*k3),
+            lambda: ra.rasterize_tiles_fwd_plain(*k3)),
     }
     mpix = cfg["width"] * cfg["height"] / fwd_ms / 1e3
     print(f"phase 4 full slice ({cfg['n']} gaussians, {cfg['width']}x"
@@ -608,8 +657,9 @@ def phase_full(device, errs, scene):
           f"fragments / {rows} rows, overflow False, launches {ran}, "
           f"K3 on {len(tiles)} tiles incl. densest {densest} "
           f"({int(lens[densest])} fragments) max abs err {e3:.3g}; forward "
-          f"{fwd_ms:.3f} ms ({mpix:.1f} Mpix/s); kernel/plain ms "
-          + ", ".join(f"{k} {a:.3f}/{b:.3f}" for k, (a, b, _) in ms.items()),
+          f"{fwd_ms:.3f} ms ({mpix:.1f} Mpix/s); device/call/plain ms "
+          + ", ".join(f"{k} {t[0]:.4f}/{t[3]:.4f}/{t[1]:.3f}"
+                      for k, t in ms.items()),
           flush=True)
     return ms, errs, forward, fwd_ms, inp
 
@@ -635,25 +685,17 @@ def phase_profile(device, fn, phase: str, what: str):
     t2 = time.perf_counter()
     enqueue_ms = (t1 - t0) * 1e3 / PROFILE_FWD
     wall_ms = (t2 - t0) * 1e3 / PROFILE_FWD
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_FWD):
-            fn()
-        torch.cuda.synchronize(device)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        fail("torch.profiler recorded no device kernel")
+    calls = device_calls(fn, iters=PROFILE_FWD)
     by_kind: dict[str, float] = {}
-    for e in kernels:
+    for e in (e for call in calls for e in call):
         kind = kernel_kind(e.name)
         by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us()
-    per_call = {k: v / 1e3 / PROFILE_FWD for k, v in
+    per_call = {k: v / 1e3 / len(calls) for k, v in
                 sorted(by_kind.items(), key=lambda kv: -kv[1])}
     device_ms = sum(per_call.values())
     print(f"phase {phase} profile ({PROFILE_FWD} back-to-back {what}s): "
           f"host enqueue {enqueue_ms:.3f} ms/{what}, wall {wall_ms:.3f} "
-          f"ms/{what}; {len(kernels) / PROFILE_FWD:.1f} device kernels and "
+          f"ms/{what}; {len(calls[0])} device kernels and "
           f"{device_ms:.3f} ms of device kernel time per {what} (busy "
           f"share {device_ms / wall_ms:.2f}); ms/{what} by kind: "
           + ", ".join(f"{k} {v:.3f}" for k, v in per_call.items()),
@@ -981,16 +1023,15 @@ def phase_train(device, scene, inp, fwd_ms, errs):
     lib5, lib6 = library_calls(bi)
     k4, k5, k6 = bi["k4"], bi["k5"], bi["k6"]
     ms = {
-        "rasterize_bwd": (cuda_ms(lambda: ra.rasterize_tiles_bwd(*k4)),
-                          cuda_ms(lambda: ra.rasterize_tiles_bwd_plain(*k4)),
-                          None),
-        "segment_sums": (
-            cuda_ms(lambda: sr.segment_sums_sorted(*k5)),
-            cuda_ms(lambda: sr.segment_sums_sorted_plain(*k5)),
-            cuda_ms(lib5)),
-        "uncompact": (cuda_ms(lambda: sr.uncompact_columns(*k6)),
-                      cuda_ms(lambda: sr.uncompact_columns_plain(*k6)),
-                      cuda_ms(lib6)),
+        "rasterize_bwd": kernel_times(
+            lambda: ra.rasterize_tiles_bwd(*k4),
+            lambda: ra.rasterize_tiles_bwd_plain(*k4)),
+        "segment_sums": kernel_times(
+            lambda: sr.segment_sums_sorted(*k5),
+            lambda: sr.segment_sums_sorted_plain(*k5), lib5),
+        "uncompact": kernel_times(
+            lambda: sr.uncompact_columns(*k6),
+            lambda: sr.uncompact_columns_plain(*k6), lib6),
     }
     mpix = cfg["width"] * cfg["height"] / step_ms / 1e3
     print(f"phase 8 training step ({cfg['n']} gaussians, {cfg['width']}x"
@@ -1004,10 +1045,11 @@ def phase_train(device, scene, inp, fwd_ms, errs):
           + ", ".join(f"{v:.6g}" for v in losses)
           + f"; bench stream K4 normalized err {n4:.3g}, K5 {n5:.3g}, K6 "
           f"bit-identical; K4 within {n_first:.3g} of its first design on "
-          f"the bench stream and the hard tiles; kernel/plain/library ms "
-          + ", ".join(f"{k} {a:.3f}/{b:.3f}/{c:.3f}" if c is not None
-                      else f"{k} {a:.3f}/{b:.3f}"
-                      for k, (a, b, c) in ms.items()),
+          f"the bench stream and the hard tiles; device/call/plain/library "
+          f"device ms "
+          + ", ".join(f"{k} {a:.4f}/{d:.4f}/{b:.3f}/{c:.4f}" if c is not None
+                      else f"{k} {a:.4f}/{d:.4f}/{b:.3f}"
+                      for k, (a, b, c, d) in ms.items()),
           flush=True)
     return launches, ms, errs, lambda: step()[2], bi
 
@@ -1087,7 +1129,8 @@ def _map_add_builder():
 
 def bundle_cases(device):
     """Phase 10's bundles, the shapes of tests/test_kernel_bundle.py at
-    BUNDLE_N items: (name, bundle, resources on the card)."""
+    BUNDLE_N items, and a map_add over fewer items than one tile: (name,
+    bundle, resources on the card, count)."""
     n = BUNDLE_N
     rng = np.random.default_rng(10)
 
@@ -1127,7 +1170,8 @@ def bundle_cases(device):
 
     update = _map_add_builder().block_size(1024).build([[c, c]])
     update.update_resources([[a, c]])
-    return [
+    few = BUNDLE_FEW
+    cases = [
         ("map_add", _map_add_builder().block_size(256).build([[a, b]]),
          [[a, b]]),
         ("constants", _map_add_builder().constants(scale=10.0)
@@ -1152,12 +1196,17 @@ def bundle_cases(device):
         ("unaligned rows", one("widen", WIDEN, (3,), [[odd]], 64)
          .build([[odd]]), [[odd]]),
     ]
+    return [(name, bundle, res, n) for name, bundle, res in cases] + [
+        ("below one tile", _map_add_builder().build_without_resources(),
+         [[a[:few], b[:few]]], few)]
 
 
 def bundle_sources(cases):
-    """Every bundle source of phases 10-11, to build in phase 1."""
-    return ([b.cuda_source(BUNDLE_N, res) for _, b, res in cases]
-            + [ub.unpack_source(layout, MODEL) for layout in ALL_LAYOUTS])
+    """Every bundle source of phases 10-11, each in K8's design and in its
+    first design, to build in phase 1."""
+    return [src for first in (False, True) for src in (
+        [b.cuda_source(n, res, first) for _, b, res, n in cases]
+        + [ub.unpack_source(layout, MODEL, first) for layout in ALL_LAYOUTS])]
 
 
 def as_tuple(out):
@@ -1177,13 +1226,15 @@ def abs_err(a, b) -> float:
 
 def phase_bundles(cases):
     """Each bundle on the card against the plain launcher on CPU copies of
-    the same inputs, bit for bit. Returns the largest abs difference over
-    every output (0 when all are equal)."""
-    n = BUNDLE_N
+    the same inputs, bit for bit, and against K8's first design. Returns
+    the largest abs difference over every output (0 when all are
+    equal)."""
     err = 0.0
-    for name, bundle, res in cases:
-        got = as_tuple(bundle.dispatch(n, res if name == "caller-managed"
-                                       else None))
+    for name, bundle, res, n in cases:
+        own = bundle._resources is None  # caller-managed resources
+        got = as_tuple(bundle.dispatch(n, res if own else None))
+        first = as_tuple(va.bundle_dispatch_first(bundle, n,
+                                                  res if own else None))
         cpu_res = [[t.cpu() for t in g] for g in res]
         want = as_tuple(bundle.dispatch(n, cpu_res))
         if not all(g.shape == w.shape for g, w in zip(got, want)):
@@ -1191,6 +1242,8 @@ def phase_bundles(cases):
         err = max([err] + [abs_err(g.cpu(), w) for g, w in zip(got, want)])
         if not all(equal_bits(g.cpu(), w) for g, w in zip(got, want)):
             fail(f"K8 bundle {name!r} differs from the plain launcher")
+        if not all(equal_bits(g, f) for g, f in zip(got, first)):
+            fail(f"K8 bundle {name!r} differs from K8's first design")
         if name == "caller-managed":
             try:
                 bundle.dispatch(n)
@@ -1198,10 +1251,23 @@ def phase_bundles(cases):
                 pass
             else:
                 fail("a bundle without resources dispatched")
-    print(f"phase 10 K8 kernel bundles vs the plain launcher ({n} items): "
-          + ", ".join(name for name, _, _ in cases)
-          + f" bit-identical (max abs err {err})", flush=True)
+    print(f"phase 10 K8 kernel bundles vs the plain launcher and K8's first "
+          f"design ({BUNDLE_N} items; {BUNDLE_FEW} below one tile): "
+          + ", ".join(name for name, *_ in cases)
+          + f" bit-identical to both (max abs err {err}); items a tile "
+          + ", ".join(f"{name} {plan_of(bundle, res, n)}"
+                      for name, bundle, res, n in cases), flush=True)
     return err
+
+
+def plan_of(bundle, res, n) -> str:
+    """The tile a dispatch of ``bundle`` gets on the card: its items and
+    the shared bytes of its block."""
+    rows = [t.shape[1] * t.element_size() if t.dim() == 2
+            else t.element_size() for g in res for t in g]
+    rows += [o.width * o.dtype.itemsize for o in bundle._outputs]
+    items = tile_plan(rows, bundle.block_size)
+    return f"{items} ({tile_smem(rows, items)} B)" if items else "direct"
 
 
 def check_unpack(outs, buf, layout):
@@ -1237,6 +1303,23 @@ def packed_bytes_equal(a, b) -> bool:
                      (a.cov3d, b.cov3d)))
 
 
+def check_first(got, bundle, n, layout):
+    """K8's unpack ``got`` bit for bit that of K8's first design."""
+    first = va.bundle_dispatch_first(bundle, n)
+    if not all(equal_bits(g, f) for g, f in zip(got, first)):
+        fail(f"K8 unpack {layout} differs from K8's first design")
+
+
+def in_turns(calls, rounds=3) -> dict:
+    """Each callable's device time (device_ms), in turns: the median over
+    ``rounds`` rounds of one device_ms each, in ms."""
+    turns: dict[str, list] = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            turns[name].append(device_ms(fn))
+    return {name: statistics.median(v) for name, v in turns.items()}
+
+
 def phase_core(device, soa):
     """The core layer's compute path at full width in all 12 layouts (the
     path whose launches phase 11 reports), then its timing."""
@@ -1253,9 +1336,13 @@ def phase_core(device, soa):
         packed = pack(soa, layout)
         buf = GaussiansBuffer.new_with_packed(packed, device)
         bundle = ub.unpack_bundle(buf, MODEL)
-        e1, n1 = check_unpack(bundle.dispatch(n), buf, layout)
+        out = bundle.dispatch(n)
+        e1, n1 = check_unpack(out, buf, layout)
+        check_first(out, bundle, n, layout)
         buf.update_range(start, fresh)  # in place: the bundle sees it
-        e2, n2 = check_unpack(bundle.dispatch(n), buf, layout)
+        out = bundle.dispatch(n)
+        e2, n2 = check_unpack(out, buf, layout)
+        check_first(out, bundle, n, layout)
         errs += [e1, e2]
         norms += [n1, n2]
         want = pack(fresh, layout)
@@ -1292,7 +1379,6 @@ def phase_core(device, soa):
 
     buf, bundle = default
     d = buf.data
-    unpack_ms = cuda_ms(lambda: bundle.dispatch(n), reps=REPS)
     plain_ms = cuda_ms(lambda: ub.unpack_plain(d.pos, d.color, d.sh, d.cov3d,
                                                buf.layout, MODEL), reps=REPS)
     in_bytes = sum(t.numel() * t.element_size() for t in ub.resources(buf))
@@ -1303,13 +1389,49 @@ def phase_core(device, soa):
     a, b = (torch.rand(MAP_ADD_N, generator=gen, device=device)
             for _ in range(2))
     add = _map_add_builder().build([[a, b]])
-    if not equal_bits(add.dispatch(MAP_ADD_N)[:, 0], torch.add(a, b)):
-        fail("K8 map_add differs from torch.add")
-    add_ms = cuda_ms(lambda: add.dispatch(MAP_ADD_N), reps=REPS)
-    torch_add_ms = cuda_ms(lambda: torch.add(a, b), reps=REPS)
-    host_ms = (enqueue_ms(lambda: add.dispatch(MAP_ADD_N), REPS),
-               enqueue_ms(lambda: torch.add(a, b), REPS))
+    free = _map_add_builder().build_without_resources()
+    want = torch.add(a, b)
+    for design, out in (("", add.dispatch(MAP_ADD_N)),
+                        (" (caller-managed)", free.dispatch(MAP_ADD_N,
+                                                            [[a, b]])),
+                        ("'s first design", va.bundle_dispatch_first(
+                            add, MAP_ADD_N))):
+        if not equal_bits(out[:, 0], want):
+            fail(f"K8{design} map_add differs from torch.add")
+    calls = {
+        "unpack": lambda: bundle.dispatch(n),
+        "unpack first": lambda: va.bundle_dispatch_first(bundle, n),
+        "map_add": lambda: add.dispatch(MAP_ADD_N),
+        "map_add first": lambda: va.bundle_dispatch_first(add, MAP_ADD_N),
+        "torch.add": lambda: torch.add(a, b),
+    }
+    t = in_turns(calls)
+    call = {name: cuda_ms(fn) for name, fn in calls.items()}
+    host_ms = {
+        "unpack": enqueue_ms(lambda: bundle.dispatch(n), REPS),
+        "map_add": enqueue_ms(lambda: add.dispatch(MAP_ADD_N), REPS),
+        "map_add caller-managed": enqueue_ms(
+            lambda: free.dispatch(MAP_ADD_N, [[a, b]]), REPS),
+        "torch.add": enqueue_ms(lambda: torch.add(a, b), REPS),
+    }
     add_bound = bound(3 * 4 * MAP_ADD_N, 0)
+    print(f"phase 11 K8 in turns (median of 3 medians of 10 calls' device "
+          f"time, profiler), ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + f"; unpack / first {t['unpack'] / t['unpack first']:.3f}, / bound "
+          f"({unpack_bound[0]:.4f} ms) {t['unpack'] / unpack_bound[0]:.3f}; "
+          f"map_add / first {t['map_add'] / t['map_add first']:.3f}, / "
+          f"torch.add {t['map_add'] / t['torch.add']:.3f}, / bound "
+          f"({add_bound[0]:.4f} ms) {t['map_add'] / add_bound[0]:.3f}; one "
+          f"call by CUDA events, ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in call.items())
+          + "; host enqueue per call, ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in host_ms.items())
+          + f" (map_add / torch.add "
+          f"{host_ms['map_add'] / host_ms['torch.add']:.2f}); items a tile "
+          f"(shared bytes a block): unpack "
+          f"{plan_of(bundle, [ub.resources(buf)], n)}, map_add "
+          f"{plan_of(add, [[a, b]], MAP_ADD_N)}", flush=True)
     print(f"phase 11 core path ({n} gaussians, 12 layouts, model transform "
           f"{MODEL}): upload, bundle unpack, update_range of {q} at {start} "
           f"(in place) and unpack again: world/rgba/sh and sigma casts "
@@ -1318,14 +1440,15 @@ def phase_core(device, soa):
           f"download_packed "
           f"bit-identical to the host pack in 12 layouts; download_gaussians "
           f"round-trips {reversible}, raises IrreversibleConfigError on "
-          f"{12 - reversible}; {launches} bundle launches; SINGLE/ROT_SCALE "
-          f"unpack {unpack_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{unpack_bound[0]:.3f} ms ({in_bytes + out_bytes} B); map_add "
-          f"over {MAP_ADD_N} f32 {add_ms:.3f} ms, torch.add "
-          f"{torch_add_ms:.3f} ms, bound {add_bound[0]:.3f} ms; host "
-          f"enqueue per call: bundle dispatch {host_ms[0]:.4f} ms, torch.add "
-          f"{host_ms[1]:.4f} ms", flush=True)
-    return (launches, max(errs), (unpack_ms, plain_ms, None), unpack_bound)
+          f"{12 - reversible}; every unpack bit-identical to K8's first "
+          f"design; {launches} bundle launches; SINGLE/ROT_SCALE unpack "
+          f"device {t['unpack']:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{unpack_bound[0]:.4f} ms ({in_bytes + out_bytes} B); map_add over "
+          f"{MAP_ADD_N} f32 device {t['map_add']:.4f} ms, torch.add "
+          f"{t['torch.add']:.4f} ms, bound {add_bound[0]:.4f} ms",
+          flush=True)
+    return (launches, max(errs),
+            (t["unpack"], plain_ms, None, call["unpack"]), unpack_bound)
 
 
 def k7_inputs(spl, tiles_x, tiles_y, cap):
@@ -1366,13 +1489,11 @@ def phase_binning(device, mid, scene):
                 fail(f"bin_splats of the {name} scene: {field} differs "
                      "from the CPU's")
         k7 = k7_inputs(spl, tx, ty, cap)
-        got, want = ex.expand_fragments(*k7), ex.expand_fragments_plain(*k7)
-        err = max([err] + [abs_err(g, w) for g, w in zip(got, want)])
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
-                                                               want[1])):
-            fail(f"K7 differs from its plain version on the {name} scene")
+        err = max(err, check_k7(f"the {name} scene", k7))
         notes.append(f"{name} {spl.xy.shape[0]} gaussians, "
                      f"{int(stream.num_fragments)} fragments, capacity {cap}")
+    for name, args in expand_tables.hard_tables(device).items():
+        err = max(err, check_k7(f"the hard table {name}", args))
     # K7's bound: the bytes it must move. It reads 5 of the table's 6
     # columns (off, span, x0, y0, gid; not the count) of the live rows
     # only (the count-0 tail rows own no slot), and writes tile and gid
@@ -1380,19 +1501,40 @@ def phase_binning(device, mid, scene):
     table, cap = k7[0], k7[2]
     live = int((table.ints[ex.TAB_CNT] > 0).sum())
     k7_bytes = 4 * (ex.TAB_ROWS - 1) * live + 8 * cap
-    ms = (cuda_ms(lambda: ex.expand_fragments(*k7), reps=REPS),
-          cuda_ms(lambda: ex.expand_fragments_plain(*k7), reps=REPS), None)
     k7_bound = bound(k7_bytes, 0)
+    t = in_turns({"K7": lambda: ex.expand_fragments(*k7),
+                  "K7 first": lambda: va.expand_fragments_first(*k7)})
+    ms = (t["K7"], cuda_ms(lambda: ex.expand_fragments_plain(*k7), reps=REPS),
+          None, cuda_ms(lambda: ex.expand_fragments(*k7)))
+    blocks = -(-(table.ints.shape[1] + cap) // ex.MERGE_ITEMS)
     print(f"phase 12 one-level bin_splats (K7): " + "; ".join(notes)
           + f"; no overflow, every stream field equal to the CPU's, K7 "
-          f"bit-identical to plain (max abs err {err}); {launches} K7 "
-          f"launches; bench K7 {ms[0]:.3f} ms, plain {ms[1]:.3f} ms, bound "
-          f"{k7_bound[0]:.4f} ms ({k7_bytes} B: 20 B x {live} live table "
-          f"rows + 8 B x {cap} slots; 24 B x all {table.ints.shape[1]} "
-          f"rows would give "
+          f"bit-identical to plain and to its first design there and on the "
+          f"hard tables {', '.join(expand_tables.HARD_TABLES)} (max abs err "
+          f"{err}); {launches} K7 launches; bench K7 in turns (median of 3 "
+          f"medians of 10 calls' device time): {t['K7']:.4f} ms, first design "
+          f"{t['K7 first']:.4f} ms, K7 / first {t['K7'] / t['K7 first']:.3f}, "
+          f"K7 / bound {t['K7'] / k7_bound[0]:.2f}; one call {ms[3]:.4f} ms; "
+          f"plain {ms[1]:.3f} ms; {blocks} blocks of {ex.MERGE_ITEMS} merge "
+          f"steps; bound {k7_bound[0]:.4f} ms ({k7_bytes} B: 20 B x {live} "
+          f"live table rows + 8 B x {cap} slots; 24 B x all "
+          f"{table.ints.shape[1]} rows would give "
           f"{bound(4 * ex.TAB_ROWS * table.ints.shape[1] + 8 * cap, 0)[0]:.4f}"
           f" ms)", flush=True)
     return launches, err, ms, k7_bound
+
+
+def check_k7(name, k7) -> float:
+    """K7 bit for bit its plain version and its first design on ``k7``
+    (K7's arguments); returns the max abs difference from plain (0)."""
+    got, want = ex.expand_fragments(*k7), ex.expand_fragments_plain(*k7)
+    first = va.expand_fragments_first(*k7)
+    for a, w, f in zip(got, want, first):
+        if not torch.equal(a, w):
+            fail(f"K7 differs from its plain version on {name}")
+        if not torch.equal(a, f):
+            fail(f"K7 differs from its first design on {name}")
+    return max(abs_err(g, w) for g, w in zip(got, want))
 
 
 # ------------------------------- phases 13-18: the measurement path
@@ -1425,6 +1567,10 @@ def phase_probe(device):
     plain_ms = cuda_ms(lambda: pr.probe_plain(x, out, count, block_elems),
                        reps=REPS)
     ms = result["ms"]
+    dev_ms = device_ms(lambda: pr.probe("capacity", x, out, count,
+                                        block_elems))
+    call_ms = cuda_ms(lambda: pr.probe("capacity", x, out, count,
+                                       block_elems))
     probe_bound = bound(8 * live * block_elems, 0)
     print(f"phase 13 K11 live-bound launch (x + 1 over blocks, the count in "
           f"a device int32): forms {', '.join(pr.FORMS)} equal to the plain "
@@ -1435,13 +1581,13 @@ def phase_probe(device):
           + "; device kernel ms (profiler) "
           + ", ".join(f"{k} {v:.4f}" for k, v in result["device_ms"].items()
                       if v is not None)
-          + f"; plain at {live} live {plain_ms:.4f} ms; bound "
-          f"{probe_bound[0]:.4f} ms (8 B per live element)", flush=True)
-    # The kernels line holds the capacity form's own time at full live (the
-    # profiler's: back to back, the host paces a 5 us kernel).
+          + f"; capacity form at {live} live: device {dev_ms:.4f} ms "
+          f"(median of 10 calls), one call {call_ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; bound {probe_bound[0]:.4f} ms (8 B per live "
+          f"element)", flush=True)
+    # The kernels line holds the capacity form's device time at full live.
     return (launches, result["max_abs_err"],
-            (result["device_ms"][f"capacity_{live}"], plain_ms, None),
-            probe_bound)
+            (dev_ms, plain_ms, None, call_ms), probe_bound)
 
 
 def phase_segsum_variants(device, bi, bound5):
@@ -1526,9 +1672,12 @@ def phase_segsum_variants(device, bi, bound5):
           f" ms; K5 / s2_gather {t['K5'] / t['s2_gather']:.3f}, K5 / bound "
           f"({bound5:.4f} ms) {t['K5'] / bound5:.2f}, K5 / segment_reduce "
           f"{t['K5'] / t['segment_reduce']:.2f}", flush=True)
-    res = results["bench step"]
-    return (launches, err, (res["levels"]["s2_gather"]["ms"], plain_ms,
-                            res["segment_reduce_ms"]))
+    s2 = (device_ms(calls["s2_gather"]), plain_ms,
+          device_ms(calls["segment_reduce"]), cuda_ms(calls["s2_gather"]))
+    print(f"phase 14 bench-step stream: s2_gather device {s2[0]:.4f} ms, one "
+          f"call {s2[3]:.4f} ms; segment_reduce device {s2[2]:.4f} ms",
+          flush=True)
+    return launches, err, s2
 
 
 def phase_raster_variants(device, inp, mid):
@@ -1574,6 +1723,9 @@ def phase_raster_variants(device, inp, mid):
         k3_plain = max(k3_plain, err)
     plain_ms = cuda_ms(lambda: va.rasterize_level_plain("v5_full", *k3_args),
                        iters=3)
+    v5 = (device_ms(lambda: va.rasterize_level("v5_full", *k3_args)),
+          plain_ms, None,
+          cuda_ms(lambda: va.rasterize_level("v5_full", *k3_args)))
     n_t = result["tiles"]
     print(f"phase 15 K9 rasterizer levels (bench stream, {n_t} tiles, "
           f"{result['fragments']} fragments): "
@@ -1587,11 +1739,10 @@ def phase_raster_variants(device, inp, mid):
           + ", ".join(f"{k} {v:.3g}" for k, v in norms.items())
           + f" (tol {K9_TOL}; v5 held to K3; max abs err "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-          + f"); {launches} launches; v5 plain {plain_ms:.3f} ms",
-          flush=True)
+          + f"); {launches} launches; v5_full device {v5[0]:.4f} ms, one "
+          f"call {v5[3]:.4f} ms, plain {plain_ms:.3f} ms", flush=True)
     # The kernels line holds the full level: its time, bound and error.
-    return (launches, errs["v5_full"],
-            (result["levels"]["v5_full"]["ms"], plain_ms, None))
+    return launches, errs["v5_full"], v5
 
 
 def phase_port_bench(device):
@@ -1770,13 +1921,15 @@ def run(device: torch.device):
     phase_raster_redesign(device, inp, bi, counts, bounds)
     t19 = time.perf_counter()
     print(f"wall time: phases 1-12 {t12 - t0:.1f} s, phases 13-19 "
-          f"{t19 - t12:.1f} s", flush=True)
+          f"{t19 - t12:.1f} s; torch.profiler: "
+          + ", ".join(f"{k} {v}" for k, v in PROFILER_STATS.items()),
+          flush=True)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": ms[name][2]}
+         "library_ms": ms[name][2], "call_ms": ms[name][3]}
         for name, src, rep in KERNELS
     ]}
 

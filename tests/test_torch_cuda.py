@@ -1,8 +1,9 @@
 """The torch port's CUDA kernels on the card (marker ``cuda``): the
 forward kernels K1-K3 and the backward kernels K4-K6 against their plain
 versions, launch counts, and the determinism of the backward; K7
-(one-level binning) and K8 (kernel bundles, the gaussian unpack of every
-layout) against their plain versions; the measurement path's K9
+(one-level binning) and K8 (kernel bundles on phase 10's shapes of
+chip_smoke.py, the gaussian unpack of every layout) against their plain
+versions and their first designs; the measurement path's K9
 (rasterizer levels: v5_full against K3), K10 (segment-sum levels:
 s2_gather against K5) and K11 (every live-bound launch form); K5 on the
 streams its design finds hard.
@@ -23,8 +24,11 @@ from wgpu_3dgs_core_tpu_torch.ops import rasterize as TR
 from wgpu_3dgs_core_tpu_torch.ops import segreduce as TS
 from wgpu_3dgs_core_tpu_torch.ops import unpack_bundle as UB
 from wgpu_3dgs_core_tpu_torch.ops.binning import (
-    bin_splats, bin_splats_attrs, count_fragments, gaussian_table, num_tiles,
-    pad_schedule, row_table,
+    bbox_table, bin_splats, bin_splats_attrs, count_fragments,
+    gaussian_table, num_tiles, pad_schedule, row_table,
+)
+from wgpu_3dgs_core_tpu_torch.ops.transforms import (
+    unpack_color, unpack_cov3d, unpack_sh,
 )
 from wgpu_3dgs_core_tpu_torch.ops.projection import project
 from wgpu_3dgs_core_tpu_torch.ops.transforms import cov3d_from_rot_scale
@@ -34,6 +38,10 @@ from wgpu_3dgs_core_tpu_torch.ops import variants as KV
 from wgpu_3dgs_core_tpu_torch.tools.bench_segsum import (
     HARD_STREAMS,
     hard_streams,
+)
+from wgpu_3dgs_core_tpu_torch.tools.expand_tables import (
+    HARD_TABLES,
+    hard_tables,
 )
 from wgpu_3dgs_core_tpu_torch.tools.probe_dyngrid import SENTINEL
 
@@ -201,7 +209,9 @@ def test_render_on_card_matches_cpu_and_counts_launches(cuda):
                                  "kernel_bundle": 0, "rasterize_variants": 0,
                                  "segment_sum_variants": 0,
                                  "probe_dyngrid": 0,
-                                 "rasterize_bwd_first": 0}
+                                 "rasterize_bwd_first": 0,
+                                 "expand_fragments_bbox_first": 0,
+                                 "kernel_bundle_first": 0}
     ref = T.render(*(a.cpu() for a in args), CAM, background=BG)
     assert not bool(res.overflow) and not bool(ref.overflow)
     err = float((res.image.cpu() - ref.image).abs().max())
@@ -257,6 +267,127 @@ def test_bin_splats_k7_equals_plain(cuda):
         k = TE.expand_fragments(table, total, f_cap, tx, tx * ty)
         p = TE.expand_fragments_plain(table, total, f_cap, tx, tx * ty)
         assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("name", ("scene",) + HARD_TABLES)
+def test_k7_equals_plain_and_first_design(cuda, name):
+    """K7's merge-path design bit for bit its plain version and its first
+    design (a binary search per slot), on this file's scene and on the
+    tables tools/expand_tables.py makes hard for it."""
+    if name == "scene":
+        spl, _, tx, ty = _binned(cuda)
+        table, total = bbox_table(spl.xy, spl.extent, spl.mask, tx, ty)
+        args = (table, total, int(total) * 3 // 2 + 5, tx, tx * ty)
+    else:
+        args = hard_tables(cuda)[name]
+    T.reset_launch_counts()
+    got = TE.expand_fragments(*args)
+    first = KV.expand_fragments_first(*args)
+    torch.cuda.synchronize()
+    assert T.launch_counts()["expand_fragments_bbox"] == 1
+    want = TE.expand_fragments_plain(*args)
+    for a, w, f in zip(got, want, first):
+        assert torch.equal(a, w) and torch.equal(a, f)
+
+
+def _times(k):
+    def body(x, out):
+        out[...] = x[...] * float(k)
+    return body
+
+
+MAP_ADD = T.BundleKernel(cuda="""
+__device__ void map_add(const float* a, const float* b, float* out) {
+  out[0] = __fmul_rn(__fadd_rn(a[0], b[0]), scale);
+}""", entry="map_add", plain=lambda a, b, out, *, scale=1.0: out.copy_(
+    (a + b) * scale))
+SUM_PROD = T.BundleKernel(cuda="""
+__device__ void sum_prod(const float* a, const float* b, const float* c,
+                         float* s, float* p) {
+  s[0] = __fadd_rn(__fadd_rn(a[0], b[0]), c[0]);
+  p[0] = __fmul_rn(__fmul_rn(a[0], b[0]), c[0]);
+}""", entry="sum_prod", plain=lambda a, b, c, s, p: (
+    s.copy_(a + b + c), p.copy_(a * b * c)))
+TIMES2 = T.BundleKernel(cuda="""
+__device__ void times2(const float* x, float* out) {
+  for (int j = 0; j < 8; ++j) out[j] = __fmul_rn(x[j], 2.0f);
+}""", entry="times2", plain=_times(2))
+WIDEN = T.BundleKernel(cuda="""
+__device__ void widen(const uint8_t* x, float* out) {
+  for (int j = 0; j < 3; ++j) out[j] = float(x[j]);
+}""", entry="widen", plain=lambda x, out: out.copy_(x.float()))
+CASTS = T.BundleKernel(cuda="""
+__device__ void casts(const __half* h, const int8_t* q, const uint8_t* c,
+                      float* oh, float* oq, float* oc) {
+  gs::unpack_cov3d_half(h, oh);
+  gs::unpack_sh_norm8(q, oq);
+  gs::unpack_color(c, oc);
+}""", entry="casts", plain=lambda h, q, c, oh, oq, oc: (
+    oh.copy_(unpack_cov3d(h, rot_scale=False)),
+    oq.copy_(unpack_sh(q, q.shape[0], q.device).reshape(-1, 45)),
+    oc.copy_(unpack_color(c))))
+
+
+def _bundle(kernel, arity, widths, block, **constants):
+    bld = (T.KernelBundleBuilder().resource_layout(
+        T.ResourceGroupLayout("inputs", arity)).kernel(kernel)
+        .block_size(block).constants(**constants))
+    for w in widths:
+        bld.output(w)
+    return bld
+
+
+def test_bundle_shapes_equal_plain_and_first_design(cuda):
+    """K8 (a block per tile, bulk async copies) on the shapes of
+    chip_smoke.py's phase 10, bit for bit the plain launcher on CPU copies
+    and K8's first design: owned and caller-managed resources, an
+    update_resources, constants, several outputs, [N, 8] rows, f16/i8/u8
+    casts, 3-byte rows at an odd address (no bulk copy), and a count below
+    one tile (the ragged path alone)."""
+    n = 66_773
+    rng = np.random.default_rng(10)
+
+    def dev(x):
+        return torch.from_numpy(x).to(cuda)
+
+    a, b, c = (dev(rng.normal(size=n).astype(np.float32)) for _ in range(3))
+    x8 = dev(rng.normal(size=(n, 8)).astype(np.float32))
+    half = dev(rng.normal(size=(n, 6)).astype(np.float16))
+    norm8 = dev(rng.integers(-128, 128, (n, 48), dtype=np.int8))
+    rgba = dev(rng.integers(0, 256, (n, 4), dtype=np.uint8))
+    odd = dev(rng.integers(0, 256, (n + 1, 3), dtype=np.uint8))[1:]
+    assert odd.data_ptr() % 16 == 3
+    update = _bundle(MAP_ADD, 2, (1,), 1024).build([[c, c]])
+    update.update_resources([[a, c]])
+    cases = [
+        (_bundle(MAP_ADD, 2, (1,), 256).build([[a, b]]), None, [[a, b]], n),
+        (_bundle(MAP_ADD, 2, (1,), 64, scale=10.0).build([[a, b]]), None,
+         [[a, b]], n),
+        (update, None, [[a, c]], n),
+        (_bundle(SUM_PROD, 3, (1, 1), 64).build([[a, b, c]]), None,
+         [[a, b, c]], n),
+        (_bundle(TIMES2, 1, (8,), 32).build([[x8]]), None, [[x8]], n),
+        (_bundle(CASTS, 3, (6, 45, 4), 256).build([[half, norm8, rgba]]),
+         None, [[half, norm8, rgba]], n),
+        (_bundle(WIDEN, 1, (3,), 64).build([[odd]]), None, [[odd]], n),
+        (_bundle(MAP_ADD, 2, (1,), 128).build_without_resources(),
+         [[b, c]], [[b, c]], n),
+        (_bundle(MAP_ADD, 2, (1,), 256).build_without_resources(),
+         [[a[:1000], b[:1000]]], [[a[:1000], b[:1000]]], 1000),
+    ]
+    for bundle, res, used, count in cases:
+        T.reset_launch_counts()
+        got = bundle.dispatch(count, res)
+        torch.cuda.synchronize()
+        assert T.launch_counts()["kernel_bundle"] == 1
+        got = got if isinstance(got, tuple) else (got,)
+        first = KV.bundle_dispatch_first(bundle, count, res)
+        first = first if isinstance(first, tuple) else (first,)
+        want = bundle.dispatch(count, [[t.cpu() for t in g] for g in used])
+        want = want if isinstance(want, tuple) else (want,)
+        for g, f, w in zip(got, first, want):
+            assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+            assert torch.equal(g.view(torch.int32), f.view(torch.int32))
 
 
 def test_unpack_bundle_equals_plain(cuda):

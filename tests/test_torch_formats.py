@@ -162,7 +162,9 @@ def test_cpu_render_launches_no_kernel():
                            "rasterize_bwd", "segment_sums", "uncompact",
                            "expand_fragments_bbox", "kernel_bundle",
                            "rasterize_variants", "segment_sum_variants",
-                           "probe_dyngrid", "rasterize_bwd_first"}
+                           "probe_dyngrid", "rasterize_bwd_first",
+                           "expand_fragments_bbox_first",
+                           "kernel_bundle_first"}
     assert not any(counts.values()), counts
 
 

@@ -2,10 +2,12 @@
 (``utils/checkpoint.py``) written by one package and read by the other bit
 for bit, the tensor adapter for extras, and the profiling helpers
 (``utils/profiling.py``) on the CPU: a named scope in an exported trace,
-``timed`` and ``block_and_time``.
+``timed`` and ``block_and_time``, and how ``device_calls`` splits a
+profiled session into calls and re-runs a session that lost operations.
 """
 
 import glob
+import types
 import json
 import os
 
@@ -100,3 +102,36 @@ def test_timed_and_block_and_time_fill_their_results():
     sec = tpf.block_and_time("add", fn, torch.ones(8), iters=3, warmup=2)
     assert sec > 0.0 and len(calls) == 5
     assert tpf.device_name(torch.ones(1).device) == "cpu"
+
+
+def _op(name):
+    return types.SimpleNamespace(name=name)
+
+
+def test_device_calls_keeps_whole_calls_and_re_runs_short_sessions(
+        monkeypatch):
+    m, k = _op(tpf.MARKER), _op("kernel")
+    # Two lead-in markers kept, then 3 calls of two operations each, the
+    # second call missing one: it is left out.
+    ops = [m, m, m, k, k, m, k, m, k, k, m]
+    calls = tpf.split_calls(ops)
+    assert [len(c) for c in calls] == [2, 1, 2]
+    assert [len(c) for c in tpf.modal_calls(calls)] == [2, 2]
+    assert tpf.split_calls([]) == [] and tpf.modal_calls([]) == []
+    # A session that keeps 2 of 3 calls whole is made again; the next,
+    # whole, is what device_calls gives.
+    sessions = iter([calls, [[k, k]] * 3])
+    monkeypatch.setattr(tpf, "_profiled_session",
+                        lambda fn, args, kwargs, iters: next(sessions))
+    before = tpf.PROFILER_STATS["short sessions"]
+    assert len(tpf.device_calls(lambda: None, iters=3)) == 3
+    assert tpf.PROFILER_STATS["short sessions"] == before + 1
+    # Sessions that never keep half the calls whole raise.
+    monkeypatch.setattr(tpf, "_profiled_session",
+                        lambda fn, args, kwargs, iters: [])
+    try:
+        tpf.device_calls(lambda: None, iters=3)
+    except RuntimeError as e:
+        assert "0 of 3 calls" in str(e)
+    else:
+        raise AssertionError("device_calls did not raise")

@@ -8,9 +8,9 @@
 //    (launcher expand_fragments_with_attrs, pl.pallas_call at expand.py:438).
 // K7 replaces wgpu_3dgs_core_tpu/ops/expand.py::_expand_kernel
 //    (launcher expand_fragments, pl.pallas_call at expand.py:386): K2's
-//    owner search and (dy, dx) decode without attributes, writing only the
-//    tile and gid rows (8 B a slot; its bound is 20 B a live table row,
-//    the five columns it reads, and 8 B a slot).
+//    (dy, dx) decode without attributes, writing only the tile and gid
+//    rows (8 B a slot; its bound is 20 B a live table row, the five
+//    columns it reads, and 8 B a slot).
 //
 // What they compute: a segment table (ops/expand.py SegmentTable) gives
 // each of its n rows a run [off, off + cnt) of output slots. For every
@@ -25,12 +25,24 @@
 // owner search is a ~log2(n) binary search whose upper levels every warp
 // shares, so it runs out of L1/L2. At 1080p K2 writes ~3M slots, ~140 MB.
 //
-// Design: one thread per output slot over the whole capacity, reading
-// `total` from device memory (no host sync, no unwritten tail to mask).
-// Neighbouring slots mostly share an owner (runs are contiguous), so the
-// row gathers coalesce and the slot-major writes are fully coalesced. The
-// TPU version's one-hot MXU gather, base-256 digit tables and bf16 splits
-// existed only for the MXU and are not carried over.
+// Design of K1 and K2: one thread per output slot over the whole
+// capacity, reading `total` from device memory (no host sync, no
+// unwritten tail to mask). Neighbouring slots mostly share an owner (runs
+// are contiguous), so the row gathers coalesce and the slot-major writes
+// are fully coalesced. The TPU version's one-hot MXU gather, base-256
+// digit tables and bf16 splits existed only for the MXU and are not
+// carried over.
+//
+// Design of K7: K7 writes only 8 B a slot, so a ~20-load binary search
+// per slot over the whole table (its first design, kept in variants.cu)
+// took 4x its bound. Each block now takes a fixed stretch of the merge of
+// the row offsets with the slots (a load-balancing search): two warps
+// find the stretch's ends with 32-ary searches, the block loads the
+// offsets of the rows it meets into shared memory with coalesced reads,
+// and each thread finds its slots' owners there and writes coalesced.
+// Rows with no slots take merge steps too, so a mostly culled table still
+// bounds each block's work. ops/expand.py::merge_path_partition_plain
+// mirrors the partition for the CPU tests.
 
 #include "common.cuh"
 
@@ -111,21 +123,91 @@ expand_fragments_kernel(const int* __restrict__ tab,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K7's blocks: each takes kMergeItems steps of the merge of the table's
+// row offsets with the slots [0, cap) (a row before a slot when its
+// offset is <= the slot), so a block meets at most kMergeItems + 1 rows
+// and kMergeItems slots, whatever the counts: 8 steps a thread, and the
+// block's row offsets in 2049 int32 of shared memory (8 KB, so eight
+// blocks fit an SM).
+constexpr int kMergeThreads = 256;
+constexpr int kMergeItems = 2048;
+
+// Rows of the merge taken before diagonal d: the smallest i in
+// [max(0, d - cap), min(d, n)] with off[i] > d - 1 - i (the merge path
+// of moderngpu's load-balancing search, upper-bound form). A warp
+// searches together: 32 probes a round cut the range 32-fold, so a range
+// of 5M rows takes 5 dependent loads where a binary search takes 23.
+// Every lane returns the result.
+__device__ __forceinline__ int merge_path_warp(const int* __restrict__ off,
+                                               int n, int cap, int d) {
+  const int lane = threadIdx.x & 31;
+  int lo = max(0, d - cap);
+  int hi = min(d, n);
+  while (lo < hi) {
+    const int step = (hi - lo + 31) >> 5;
+    const int q = lo + lane * step;
+    const bool before = q < hi && __ldg(off + q) <= d - 1 - q;
+    // The probes that precede the diagonal are a prefix of the lanes.
+    const int c = __popc(__ballot_sync(0xffffffffu, before));
+    const int new_hi = c < 32 ? min(lo + c * step, hi) : hi;
+    lo = c > 0 ? lo + (c - 1) * step + 1 : lo;
+    hi = new_hi;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kMergeThreads)
 expand_bbox_kernel(const int* __restrict__ tab, int n,
                    const int* __restrict__ total_ptr, int cap, int tiles_x,
                    int t_total, int* __restrict__ out) {
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= cap) return;
+  __shared__ int s_off[kMergeItems + 1];
+  __shared__ int s_part[2];
+  const int* off = tab + GS_TAB_OFF * n;
+  const int d0 = blockIdx.x * kMergeItems;
+  const int d1 = min(d0 + kMergeItems, n + cap);
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int i = merge_path_warp(off, n, cap, warp == 0 ? d0 : d1);
+    if ((threadIdx.x & 31) == 0) s_part[warp] = i;
+  }
+  __syncthreads();
+  const int i0 = s_part[0];
+  const int i1 = s_part[1];
+  const int j0 = d0 - i0;
+  const int j1 = d1 - i1;
+  // Slot j's owner is the last row with offset <= j: row i0 - 1 (taken
+  // before the block) up to row i1 - 1. Row 0 stands in for a slot no
+  // row's offset reaches, as the plain version's clamp does.
+  const int r0 = max(i0 - 1, 0);
+  const int rows = i1 - r0;
+  for (int r = threadIdx.x; r < rows; r += kMergeThreads) {
+    s_off[r] = __ldg(off + r0 + r);
+  }
+  __syncthreads();
+  const int total = __ldg(total_ptr);
   const size_t cs = static_cast<size_t>(cap);
-  if (s < __ldg(total_ptr)) {
-    const int* off = tab + GS_TAB_OFF * n;
-    const int g = gs_owner(off, n, s);
-    out[s] = slot_tile(tab, n, g, s - __ldg(off + g), tiles_x);
-    out[cs + s] = __ldg(tab + GS_TAB_GID * n + g);
-  } else {
-    out[s] = t_total;
-    out[cs + s] = 0;
+  for (int j = j0 + threadIdx.x; j < j1; j += kMergeThreads) {
+    if (j < total && n > 0) {
+      int lo = 0;
+      int hi = rows;
+      while (lo < hi) {  // rows of the block with offset <= j
+        const int mid = (lo + hi) >> 1;
+        if (s_off[mid] <= j) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      const int r = max(lo - 1, 0);
+      // The owner's other columns from global memory: a warp's slots
+      // share a few owners, so these loads hit L1 (staging them in shared
+      // memory, 20 KB more a block, measured slower).
+      out[j] = slot_tile(tab, n, r0 + r, j - s_off[r], tiles_x);
+      out[cs + j] = __ldg(tab + GS_TAB_GID * n + r0 + r);
+    } else {
+      out[j] = t_total;
+      out[cs + j] = 0;
+    }
   }
 }
 
@@ -167,8 +249,9 @@ GS_EXPORT int gs_expand_fragments(const int* tab, const float* attr, int n,
 GS_EXPORT int gs_expand_bbox(const int* tab, int n, const int* total,
                              int cap, int tiles_x, int t_total, int* out,
                              void* stream) {
-  const int blocks = (cap + kThreads - 1) / kThreads;
-  expand_bbox_kernel<<<blocks, kThreads, 0,
+  const int blocks = static_cast<int>(
+      (static_cast<long long>(n) + cap + kMergeItems - 1) / kMergeItems);
+  expand_bbox_kernel<<<blocks, kMergeThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       tab, n, total, cap, tiles_x, t_total, out);
   return static_cast<int>(cudaGetLastError());

@@ -1,7 +1,8 @@
-// Variant benches of the rasterizer (K9) and of the segment sums (K10), for
-// sm_90a: each kernel here is a stripped copy of a production kernel, one
-// ingredient per level, timed over the same inputs so the step from one
-// level to the next prices that ingredient.
+// Variant benches of the rasterizer (K9) and of the segment sums (K10),
+// and the first designs of K4 and K7, for sm_90a: each kernel of K9 and
+// K10 is a stripped copy of a production kernel, one ingredient per level,
+// timed over the same inputs so the step from one level to the next prices
+// that ingredient.
 //
 // K9 replaces tools/bench_kernel_variants.py::run_variant (pl.pallas_call
 //    at bench_kernel_variants.py:239, level bodies in _mk_kernel). It
@@ -51,6 +52,12 @@
 //    pixel evaluates every fragment, a warp sums each of its 9 values with
 //    a 5-step butterfly per fragment and lane 0 makes the nine stores. It
 //    takes K4's arguments and gives its [9, F] gradients.
+//
+// K7's first design (measurement only), kept as its record:
+//    expand_bbox_first_kernel, one thread per slot over the capacity, each
+//    finding its owner by a binary search over the whole table's offsets
+//    (common.cuh gs_owner, ~20 dependent loads at 1M rows). It takes K7's
+//    arguments and gives its [2, cap] tile and gid rows.
 //
 // What bounds them: K9's full level is K3's work (per-(pixel, fragment)
 // arithmetic, ~20 flops to evaluate and ~9 to blend); K10's full level is
@@ -442,6 +449,31 @@ cudaError_t launch_segsum_level(const int* keys, const long long* perm,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ K7's first design
+
+__global__ void __launch_bounds__(256)
+expand_bbox_first_kernel(const int* __restrict__ tab, int n,
+                         const int* __restrict__ total_ptr, int cap,
+                         int tiles_x, int t_total, int* __restrict__ out) {
+  const int s = blockIdx.x * 256 + threadIdx.x;
+  if (s >= cap) return;
+  const size_t cs = static_cast<size_t>(cap);
+  if (s < __ldg(total_ptr)) {
+    const int* off = tab + GS_TAB_OFF * n;
+    const int g = gs_owner(off, n, s);
+    const int rank = s - __ldg(off + g);
+    const int span = max(__ldg(tab + GS_TAB_SPAN * n + g), 1);
+    const int dy = rank / span;
+    const int dx = rank - dy * span;
+    out[s] = (__ldg(tab + GS_TAB_Y0 * n + g) + dy) * tiles_x +
+             __ldg(tab + GS_TAB_X0 * n + g) + dx;
+    out[cs + s] = __ldg(tab + GS_TAB_GID * n + g);
+  } else {
+    out[s] = t_total;
+    out[cs + s] = 0;
+  }
+}
+
 }  // namespace
 
 // K9 level `level` (0-6, above) over K3's arguments: frags f32 [9, f_stride]
@@ -521,5 +553,16 @@ GS_EXPORT int gs_rasterize_bwd_first(const float* frags, int f_stride,
                                static_cast<cudaStream_t>(stream)>>>(
       frags, f_stride, tile_start, tile_len, draw_len, n_tiles, out, g_out,
       bg_r, bg_g, bg_b, cutoff_sq, mode, dfrag);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's first design over K7's arguments: tab int32 [GS_TAB_ROWS, n] with
+// n > 0; total int32 [1]; out int32 [2, cap] (tile, gid). cap > 0.
+GS_EXPORT int gs_expand_bbox_first(const int* tab, int n, const int* total,
+                                   int cap, int tiles_x, int t_total,
+                                   int* out, void* stream) {
+  expand_bbox_first_kernel<<<(cap + 255) / 256, 256, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      tab, n, total, cap, tiles_x, t_total, out);
   return static_cast<int>(cudaGetLastError());
 }

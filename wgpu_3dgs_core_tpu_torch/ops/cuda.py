@@ -260,14 +260,18 @@ class Launcher:
     def call(self, fn, lib: ctypes.CDLL, *args, work: int,
              device: torch.device) -> None:
         """Launch the bound C entry ``fn`` of ``lib`` over ``work`` output
-        slots on ``device``'s current stream, with ``device`` current;
-        every pointer argument is a tensor's ``data_ptr()``. With no work
-        there is no grid: nothing is launched and nothing counted."""
+        slots on ``device``'s current stream, with ``device`` current (made
+        so only where another card is); every pointer argument is a
+        tensor's ``data_ptr()``. With no work there is no grid: nothing is
+        launched and nothing counted."""
         if work <= 0:
             return
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(*args, stream)
+        index = device.index
+        if torch.cuda.current_device() == index:
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
             msg = lib.gs_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")

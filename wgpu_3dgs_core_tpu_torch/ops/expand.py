@@ -147,7 +147,7 @@ def _owner(table: SegmentTable, cap: int, total: torch.Tensor):
     return live, g, rank
 
 
-def _check_table(table: SegmentTable, total: torch.Tensor) -> None:
+def check_table(table: SegmentTable, total: torch.Tensor) -> None:
     n = table.ints.shape[1]
     check(table.ints, "table.ints", torch.int32, (TAB_ROWS, n))
     check(table.attrs, "table.attrs", torch.float32, (None, n))
@@ -187,7 +187,7 @@ def expand_rows(table: SegmentTable, total_rows: torch.Tensor,
     """K1: expand the per-gaussian table (counts = bbox row spans) into the
     row stream. ``total_rows`` is a 0-d int32 tensor on the table's device;
     slots at or past it are zero."""
-    _check_table(table, total_rows)
+    check_table(table, total_rows)
     if on_cpu(table.ints, table.attrs, total_rows):
         return expand_rows_plain(table, total_rows, r_cap)
     a, n = table.attrs.shape
@@ -205,7 +205,7 @@ def expand_rows(table: SegmentTable, total_rows: torch.Tensor,
 # -------------------------------------------------------------------- K2
 
 
-def _empty_tiles(cap: int, t_total: int, dev):
+def empty_tiles(cap: int, t_total: int, dev):
     return (torch.full((cap,), t_total, dtype=torch.int32, device=dev),
             torch.zeros((cap,), dtype=torch.int32, device=dev))
 
@@ -233,7 +233,7 @@ def expand_fragments_with_attrs_plain(table: SegmentTable,
     a = table.attrs.shape[0]
     dev = table.ints.device
     if table.ints.shape[1] == 0:
-        tile, gid = _empty_tiles(f_cap, t_total, dev)
+        tile, gid = empty_tiles(f_cap, t_total, dev)
         return tile, gid, torch.zeros((a + 1, f_cap), dtype=torch.float32,
                                       device=dev)
     live, g, tile, gid = _slot_tiles(table, total, f_cap, tiles_x, t_total)
@@ -258,7 +258,7 @@ def expand_fragments_with_attrs(table: SegmentTable, total: torch.Tensor,
     attributes and then gid as f32. Slots at or past ``total`` get
     tile = t_total, gid 0 and zero attributes.
     """
-    _check_table(table, total)
+    check_table(table, total)
     if on_cpu(table.ints, table.attrs, total):
         return expand_fragments_with_attrs_plain(table, total, f_cap,
                                                  tiles_x, t_total)
@@ -305,9 +305,38 @@ def expand_fragments_plain(table: SegmentTable, total: torch.Tensor,
                            f_cap: int, tiles_x: int, t_total: int):
     """Plain version of K7 (the spec the kernel equals bit for bit)."""
     if table.ints.shape[1] == 0:
-        return _empty_tiles(f_cap, t_total, table.ints.device)
+        return empty_tiles(f_cap, t_total, table.ints.device)
     _, _, tile, gid = _slot_tiles(table, total, f_cap, tiles_x, t_total)
     return tile, gid
+
+
+# Merge steps a block of K7 takes (csrc/expand.cu kMergeItems).
+MERGE_ITEMS = 2048
+
+
+def merge_path_partition_plain(off: torch.Tensor, cap: int,
+                               items: int = MERGE_ITEMS):
+    """Where K7's blocks start, as the kernel finds it: block b takes
+    steps [b * items, (b + 1) * items) of the merge of the row offsets
+    ``off`` (int32 [n], nondecreasing) with the slots [0, cap), a row
+    before a slot when its offset is <= the slot. Returns (slot, row)
+    int64 [blocks + 1]: the slots and rows taken before each block, then
+    (cap, n). The kernel searches with 32 probes a round, this mirror by
+    halving; the predicate, and so the result, is the same."""
+    n = off.shape[0]
+    blocks = -(-(n + cap) // items)
+    d = torch.clamp(torch.arange(blocks + 1, device=off.device) * items,
+                    max=n + cap)
+    lo = torch.clamp(d - cap, min=0)
+    hi = torch.clamp(d, max=n)
+    off64 = off.long()
+    while bool((lo < hi).any()):
+        open_ = lo < hi
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        before = off64[torch.clamp(mid, max=max(n - 1, 0))] <= d - 1 - mid
+        lo = torch.where(open_ & before, mid + 1, lo)
+        hi = torch.where(open_ & ~before, mid, hi)
+    return d - lo, lo
 
 
 EXPAND_BBOX = CudaKernel(
@@ -319,8 +348,10 @@ def expand_fragments(table: SegmentTable, total: torch.Tensor, f_cap: int,
                      tiles_x: int, t_total: int):
     """K7: expand the one-level table into ``tile`` and ``gid`` [f_cap]
     int32, in original gaussian order; slots at or past ``total`` (a 0-d
-    int32 tensor on the table's device) get tile = t_total and gid 0."""
-    _check_table(table, total)
+    int32 tensor on the table's device) get tile = t_total and gid 0. On
+    the card each block takes a stretch of the merge of the offsets with
+    the slots (:func:`merge_path_partition_plain`)."""
+    check_table(table, total)
     if on_cpu(table.ints, table.attrs, total):
         return expand_fragments_plain(table, total, f_cap, tiles_x, t_total)
     n = table.ints.shape[1]

@@ -32,11 +32,17 @@ Dispatch follows the device of the resources (ops/cuda.py ``on_cpu``):
   [block, F] views, as Pallas runs the body.
 - CUDA tensors launch K8: for each dispatch signature the bundle generates
   a small source (:func:`bundle_source`, a pure function) that includes
-  ``csrc/bundle.cuh``'s ``__global__`` map template, builds it with nvcc
+  ``csrc/bundle.cuh``'s ``__global__`` map templates, builds it with nvcc
   (ops/cuda.py ``build_sources``, cached on disk by the source's hash) and
-  launches it, one thread per item; launches count as ``kernel_bundle``.
-  There is no fallback: a bundle without CUDA source, a failed build or a
-  failed launch raises.
+  launches it: a block per tile of :func:`tile_plan` items, moved through
+  shared memory by bulk async copies; launches count as
+  ``kernel_bundle``. There is no fallback: a bundle without CUDA source, a
+  failed build or a failed launch raises.
+
+A dispatch re-checks only what can change between calls: the resources
+the bundle owns are validated and flattened when they are set (``build``,
+``update_resources``), and each call compares their pointers and shapes
+and the count; the arguments' layout is kept per signature.
 
 Deliberate divergences from the JAX package: ``MAX_BLOCK_SIZE`` is 1024,
 CUDA's limit of threads per block, where the TPU's was 8192 (bounded by
@@ -73,6 +79,19 @@ DEFAULT_BLOCK_SIZE = 256
 
 BUNDLE_ENTRY = "gs_bundle_launch"
 KERNEL_BUNDLE = Launcher("kernel_bundle")
+
+# The tiled map (csrc/bundle.cuh) on sm_90 (H100, H200), the only target
+# the kernels are built for, where a block may opt in to 232,448 bytes of
+# shared memory. A tile's rows take at most TILE_BYTES, so that four
+# blocks share an SM's 233,472 bytes (the runtime keeps 1,024 a block),
+# and each thread runs at most ITEMS_PER_THREAD items: the best of the
+# sizes timed on the card for the unpack and map_add (PERF.md).
+SMEM_OPTIN = 232_448
+BARRIER_BYTES = 8  # the tile's mbarrier (csrc/bundle.cuh kBarrierBytes)
+TILE_GRANULE = 16  # items: a tile of any row width is whole 16-byte words
+TILE_BYTES = 52 * 1024
+ITEMS_PER_THREAD = 4
+
 
 # torch dtype -> C type of a resource or output element: the packed
 # layouts' element types, and int32.
@@ -125,6 +144,26 @@ class OutputSpec:
     dtype: torch.dtype = torch.float32
 
 
+def tile_plan(row_bytes: Sequence[int], block: int) -> int:
+    """Items a tile of the tiled map, for a signature whose resource and
+    output rows take ``row_bytes`` bytes, in blocks of ``block`` threads:
+    the largest multiple of 16 whose rows fit TILE_BYTES, at most
+    ITEMS_PER_THREAD a thread; 16 for rows too wide for that while 16 fit
+    a block's opt-in limit; else 0, the direct kernel."""
+    per_item = max(sum(row_bytes), 1)  # rows of width 0 take no bytes
+    g = TILE_GRANULE
+    items = min(TILE_BYTES // per_item, ITEMS_PER_THREAD * block) // g * g
+    if items >= g:
+        return items
+    return g if tile_smem(row_bytes, g) <= SMEM_OPTIN else 0
+
+
+def tile_smem(row_bytes: Sequence[int], items: int) -> int:
+    """Shared bytes a block of the tiled map takes for a tile of
+    ``items``."""
+    return sum(-(-b * items // 16) * 16 for b in row_bytes) + BARRIER_BYTES
+
+
 # ------------------------------------------------------ source generation
 
 
@@ -169,15 +208,18 @@ def _config_lines(config) -> list[str]:
 
 def bundle_source(kernel: BundleKernel, in_dtypes: Sequence[torch.dtype],
                   out_dtypes: Sequence[torch.dtype],
-                  constants: Mapping[str, Any], config=None) -> str:
+                  constants: Mapping[str, Any], config=None,
+                  first: bool = False) -> str:
     """The CUDA source of one bundle signature: the layout's feature
     macros, the device library and csrc/bundle.cuh, the constants, the
-    kernel's source, and one ``extern "C"`` entry launching the map.
+    kernel's source, and one ``extern "C"`` entry launching the map
+    (``first``: K8's first design, a measurement record, whose entry
+    takes no tile plan).
 
     It depends on the kernel, the element types and the constants and
-    config only (not on the count, the row widths or the block size, which
-    the entry takes at run time), so bundles that share them share one
-    build."""
+    config only (not on the count, the row widths, the block size or the
+    tile plan, which the entry takes at run time), so bundles that share
+    them share one build."""
     if kernel.cuda is None:
         raise MissingKernelError("bundle kernel has no CUDA source")
     for dt in (*in_dtypes, *out_dtypes):
@@ -216,9 +258,12 @@ def bundle_source(kernel: BundleKernel, in_dtypes: Sequence[torch.dtype],
         "}  // namespace",
         "",
         f"GS_EXPORT int {BUNDLE_ENTRY}(int count, int block,",
+        *([] if first else ["    int tile,"]),
         *(f"    {p}," for p in params),
         "    void* stream) {",
-        "  return gs::launch_map<gs_bundle_item>(count, block, stream,",
+        ("  return gs::launch_map_first<gs_bundle_item>(count, block, stream,"
+         if first else
+         "  return gs::launch_map<gs_bundle_item>(count, block, tile, stream,"),
         ",\n".join(f"      {r}" for r in rows) + ");",
         "}",
         "",
@@ -243,6 +288,43 @@ def _plain_defaults(fn: Optional[Callable]) -> dict[str, Any]:
 # ---------------------------------------------------------------- bundle
 
 
+class _Owned:
+    """The resources a bundle owns, flattened once: the [count, W] views a
+    dispatch hands the kernel, the tensors they view with the pointer and
+    shape each had, and the signature's runner once a dispatch has found
+    it."""
+
+    __slots__ = ("src", "flat", "ptrs", "shapes", "rows", "run")
+
+    @classmethod
+    def of(cls, resources) -> Optional["_Owned"]:
+        """None where a dispatch must flatten the resources itself: a
+        resource that is not a contiguous tensor of 1 or 2 dims (its flat
+        form would be a copy, blind to updates in place, or is no [count,
+        W] array), or row counts that differ (every dispatch raises)."""
+        src = [t for group in resources for t in group]
+        if not all(isinstance(t, torch.Tensor) and t.dim() in (1, 2)
+                   and t.is_contiguous() for t in src):
+            return None
+        rows = {t.shape[0] for t in src}
+        if len(rows) != 1:
+            return None
+        owned = cls()
+        owned.src = src
+        owned.flat = [t[:, None] if t.dim() == 1 else t for t in src]
+        owned.ptrs = [t.data_ptr() for t in src]
+        owned.shapes = [t.shape for t in src]
+        (owned.rows,) = rows
+        owned.run = None
+        return owned
+
+    def current(self) -> bool:
+        """Whether every resource still has the storage and shape it had
+        when flattened (an update in place keeps both)."""
+        return all(t.data_ptr() == p and t.shape == s
+                   for t, p, s in zip(self.src, self.ptrs, self.shapes))
+
+
 class KernelBundle:
     """A built, dispatchable kernel (reference: ComputeBundle,
     compute_bundle.rs:49-60).
@@ -263,8 +345,9 @@ class KernelBundle:
         self._constants = dict(constants)
         self._config = config
         self._resources = resources
+        self._owned: Optional[_Owned] = None
         # Build once, dispatch many (reference: compute_bundle.rs:311-330):
-        # one launcher per (device, resource dtypes), what the generated
+        # one runner per (device, resource dtypes), what the generated
         # source depends on; the count and row widths are run-time
         # arguments of the launcher.
         self._dispatch_cache: dict[Any, Any] = {}
@@ -273,6 +356,7 @@ class KernelBundle:
         """Re-point the bundle at new tensors (reference:
         compute_bundle.rs:204-228)."""
         self._resources = _validate_resources(self._layouts, resources)
+        self._owned = _Owned.of(self._resources)
 
     def _flat(self, count: int, resources) -> list[torch.Tensor]:
         if resources is None:
@@ -303,31 +387,48 @@ class KernelBundle:
             statics["config"] = self._config
         return statics
 
-    def cuda_source(self, count: int, resources=None) -> str:
-        """The generated source of a dispatch of ``count`` items."""
-        return self._source(self._flat(count, resources))
+    def cuda_source(self, count: int, resources=None,
+                    first: bool = False) -> str:
+        """The generated source of a dispatch of ``count`` items
+        (``first``: of K8's first design)."""
+        return self._source(self._flat(count, resources), first)
 
-    def _source(self, flat) -> str:
+    def _source(self, flat, first: bool = False) -> str:
         return bundle_source(
             self._kernel, [t.dtype for t in flat],
             [o.dtype for o in self._outputs],
             {**_plain_defaults(self._kernel.plain), **self._constants},
-            self._config,
+            self._config, first,
         )
 
     def dispatch(self, count: int, resources: Optional[Sequence] = None):
         """Run the kernel over ``count`` items
         (reference: compute_bundle.rs:114-132). Returns one [count, W]
         tensor per output (a tuple when there are several)."""
-        flat = self._flat(count, resources)
+        owned = self._owned if resources is None else None
+        if owned is not None and not owned.current():
+            owned = self._owned = _Owned.of(self._resources)
+        if owned is not None and count == owned.rows:
+            flat = owned.flat
+            run = owned.run
+            if run is None:
+                run = owned.run = self._runner(flat)
+        else:  # validate and flatten this call's resources
+            flat = self._flat(count, resources)
+            run = self._runner(flat)
+        result = tuple(run(count, flat))
+        return result if len(result) > 1 else result[0]
+
+    def _runner(self, flat):
+        """The runner of this signature: the plain launcher on CPU
+        tensors, else the built CUDA entry."""
         cpu = on_cpu(*flat)
         key = (flat[0].device, tuple(t.dtype for t in flat))
         run = self._dispatch_cache.get(key)
         if run is None:
             run = self._dispatch_plain if cpu else self._build_cuda(flat)
             self._dispatch_cache[key] = run
-        result = tuple(run(count, flat))
-        return result if len(result) > 1 else result[0]
+        return run
 
     def _dispatch_plain(self, count: int, flat):
         """K8's plain version: pad to whole blocks with zeros and run the
@@ -350,27 +451,44 @@ class KernelBundle:
                                *(o[rows] for o in outs), **statics)
         return [o[:count] for o in outs]
 
-    def _build_cuda(self, flat):
+    def _build_cuda(self, flat, first: bool = False,
+                    launcher: Launcher = KERNEL_BUNDLE):
         """Generate, build (or find built) and bind the entry of this
-        signature; returns its launcher."""
+        signature (``first``: of K8's first design, counted by
+        ``launcher``); returns its runner. The runner keeps, per row
+        widths, the arguments ahead of the pointers: the block and the
+        tile's items."""
         if self._kernel.cuda is None:
             raise MissingKernelError(
                 f"{self.label}: bundle kernel has no CUDA source; CUDA "
                 "tensors need one (there is no plain fallback)")
-        (info,) = cuda.build_sources([self._source(flat)])
+        (info,) = cuda.build_sources([self._source(flat, first)])
         lib = cuda.bundle_library(info.path)
-        argtypes = [I, I] + [P, L] * (len(flat) + len(self._outputs))
+        outputs = self._outputs
+        argtypes = ([I, I] + [I] * (not first)
+                    + [P, L] * (len(flat) + len(outputs)))
         fn = cuda.bind(lib, BUNDLE_ENTRY, argtypes)
         block = self.block_size
+        out_bytes = [o.width * o.dtype.itemsize for o in outputs]
+        heads: dict[tuple, tuple] = {}
 
         def run(count, flat):
+            widths = tuple(t.shape[1] for t in flat)
+            head = heads.get(widths)
+            if head is None:
+                head = heads[widths] = (block,) if first else (
+                    block, tile_plan([w * t.element_size()
+                                      for w, t in zip(widths, flat)]
+                                     + out_bytes, block))
             dev = flat[0].device
             outs = [torch.empty((count, o.width), dtype=o.dtype, device=dev)
-                    for o in self._outputs]
-            args = [a for t in (*flat, *outs)
-                    for a in (t.data_ptr(), t.shape[1])]
-            KERNEL_BUNDLE.call(fn, lib, count, block, *args, work=count,
-                               device=dev)
+                    for o in outputs]
+            args = [count, *head]
+            for t, w in zip(flat, widths):
+                args += (t.data_ptr(), w)
+            for t, o in zip(outs, outputs):
+                args += (t.data_ptr(), o.width)
+            launcher.call(fn, lib, *args, work=count, device=dev)
             return outs
 
         return run

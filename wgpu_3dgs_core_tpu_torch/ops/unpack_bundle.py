@@ -99,15 +99,17 @@ UNPACK_GAUSSIANS = BundleKernel(cuda=UNPACK_SOURCE, entry="unpack_gaussian",
 
 
 def unpack_source(layout: GaussianLayout,
-                  mt: ModelTransform = ModelTransform()) -> str:
+                  mt: ModelTransform = ModelTransform(),
+                  first: bool = False) -> str:
     """The CUDA source :func:`unpack_bundle` generates for a buffer of
-    ``layout``, from the layout alone (to build ahead of the buffers)."""
+    ``layout``, from the layout alone (to build ahead of the buffers;
+    ``first``: for K8's first design)."""
     packed = [np.float32, np.uint8, layout.sh_dtype, layout.cov3d_dtype]
     in_dtypes = [torch.from_numpy(np.zeros(0, dt)).dtype
                  for dt in packed if dt is not None]
     return bundle_source(UNPACK_GAUSSIANS, in_dtypes,
                          [torch.float32] * len(OUTPUT_WIDTHS),
-                         model_constants(mt), layout)
+                         model_constants(mt), layout, first)
 
 
 def resources(buffer: GaussiansBuffer) -> list[torch.Tensor]:
@@ -116,8 +118,8 @@ def resources(buffer: GaussiansBuffer) -> list[torch.Tensor]:
     return [d.pos, d.color, *([] if d.sh is None else [d.sh]), d.cov3d]
 
 
-# Items a block: the launcher stages a block's rows (up to 460 bytes an
-# item) through shared memory, and 128 items let three blocks share an SM.
+# Threads a block: a block runs a tile of up to 112 items of up to 460
+# bytes (kernel_bundle.tile_plan), four blocks an SM.
 BLOCK_SIZE = 128
 
 

@@ -1,7 +1,7 @@
 """Variant kernels of the measurement path: K9 (the forward rasterizer K3
-stripped level by level), K4's first design and K10 (the segment sums of
-K5's first design, a warp per row, stripped level by level), with their
-plain versions.
+stripped level by level), the first designs of K4, K7 and K8, and K10
+(the segment sums of K5's first design, a warp per row, stripped level by
+level), with their plain versions.
 
 K9 (:func:`rasterize_level`, replaces ``tools/bench_kernel_variants.py::
 run_variant``) and K10 (:func:`segment_sums_level`, replaces
@@ -16,7 +16,10 @@ v1_q and v2_alpha their per-pixel sum in channel 0 (channels 1-3 zero);
 v3_trans, v4_color and v6_notrans a K3 tile; v5_full, K3's first design
 (no pixel-box cull), K3's tile bit for bit.
 :func:`rasterize_bwd_first` runs K4's first design, before the cull and
-the reduce-scatter, over K4's arguments.
+the reduce-scatter, over K4's arguments; :func:`expand_fragments_first`
+K7's, a binary search per slot over the whole table, over K7's; and
+:func:`bundle_dispatch_first` K8's, one block a tile without overlap,
+over a bundle's dispatch.
 K10's levels take K5's arguments and give [9, rows]; s0_stream and
 s1_search read the gradients in key order (:func:`level_operand`).
 """
@@ -26,7 +29,14 @@ from __future__ import annotations
 import torch
 
 from .binning import TILE_SIZE
-from .cuda import CudaKernel, F, I, P, check, on_cpu
+from .cuda import CudaKernel, F, I, Launcher, P, check, on_cpu
+from .expand import (
+    SegmentTable,
+    check_table,
+    empty_tiles,
+    expand_fragments_plain,
+)
+from .kernel_bundle import KernelBundle
 from .rasterize import (
     ALPHA_CLAMP,
     ALPHA_MIN,
@@ -171,6 +181,57 @@ def rasterize_bwd_first(frags, tile_start, tile_len, draw_len, out, g_out,
         work=tile_start.shape[0], device=dev,
     )
     return dfrag
+
+
+# ------------------------------------------------- K7's first design
+
+EXPAND_BBOX_FIRST = CudaKernel(
+    "expand_fragments_bbox_first", "gs_expand_bbox_first",
+    [P, I, P, I, I, I, P],
+)
+
+
+def expand_fragments_first(table: SegmentTable, total: torch.Tensor,
+                           f_cap: int, tiles_x: int, t_total: int):
+    """K7's first design (a binary search per slot over the whole table)
+    over K7's arguments (as ``ops/expand.py::expand_fragments`` takes
+    them). Returns (tile, gid) [f_cap] int32; on CPU tensors K7's plain
+    version."""
+    check_table(table, total)
+    if on_cpu(table.ints, table.attrs, total):
+        return expand_fragments_plain(table, total, f_cap, tiles_x, t_total)
+    n = table.ints.shape[1]
+    dev = table.ints.device
+    if n == 0:
+        return empty_tiles(f_cap, t_total, dev)
+    out = torch.empty((2, f_cap), dtype=torch.int32, device=dev)
+    EXPAND_BBOX_FIRST.launch(
+        table.ints.data_ptr(), n, total.data_ptr(), f_cap, tiles_x, t_total,
+        out.data_ptr(), work=f_cap, device=dev,
+    )
+    return out[0], out[1]
+
+
+# ------------------------------------------------- K8's first design
+
+KERNEL_BUNDLE_FIRST = Launcher("kernel_bundle_first")
+
+
+def bundle_dispatch_first(bundle: KernelBundle, count: int,
+                          resources=None):
+    """A bundle's dispatch through K8's first design (a block per tile of
+    ``block_size`` items, no overlap inside a block), on CUDA resources
+    only: its outputs, as :meth:`KernelBundle.dispatch` returns them."""
+    flat = bundle._flat(count, resources)
+    if on_cpu(*flat):
+        raise ValueError("K8's first design runs on CUDA tensors only")
+    key = ("first", flat[0].device, tuple(t.dtype for t in flat))
+    run = bundle._dispatch_cache.get(key)
+    if run is None:
+        run = bundle._dispatch_cache[key] = bundle._build_cuda(
+            flat, first=True, launcher=KERNEL_BUNDLE_FIRST)
+    result = tuple(run(count, flat))
+    return result if len(result) > 1 else result[0]
 
 
 # ------------------------------------------------------------------- K10

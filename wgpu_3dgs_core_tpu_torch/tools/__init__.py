@@ -10,5 +10,6 @@
   reference at bench shape.
 
 They run on the card unless given ``--device cpu``; the port bench is
-``python -m wgpu_3dgs_core_tpu_torch.bench``.
+``python -m wgpu_3dgs_core_tpu_torch.bench``. ``expand_tables`` makes the
+segment tables K7's design finds hard, for the tests and chip_smoke.py.
 """
