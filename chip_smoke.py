@@ -111,6 +111,21 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     against its first design, and K4 on its longest tile alone (the
     tail); the (warp, fragment) pairs the cull keeps and skips and the
     blending warp events.
+20. the sharded renderer at D=1 in this process (NCCL, one rank): the
+    bench scene's training step (mean(image^2)) through render_sharded,
+    its image bit for bit render's, its gradients within 1e-4 normalized
+    (bit for bit expected), the K1-K6 launches of that path, and the two
+    steps in turns (10 pairs, CUDA events) and their device time by
+    kernel kind (profiler): the wrapper's D=1 overhead;
+21. the sharded renderer over ranks spawned on this one card by
+    parallel/launch.py under gloo (NCCL takes no two ranks on one card;
+    gloo stages the collectives through the host): the bench scene at D=2
+    (all_to_all) and the mid scene at D=4 (both exchanges), each rank's
+    image within 1e-5 of render's and the gradients within 1e-4
+    normalized, no overflow, each rank's K1-K6 launches, each strip's
+    routed splats, route capacity and fragments, two backward passes
+    bit-identical at D=2; its times labelled as one card through gloo,
+    not a multi-GPU number; then entry.dryrun_multichip(2) under gloo.
 
 Then a JSON line of the kernels (launches on the training step, for K7 and
 K8 on phases 11-12, for K9-K11 on the tools' runs of phases 13-15; errors;
@@ -168,6 +183,17 @@ from wgpu_3dgs_core_tpu_torch import (  # noqa: E402
     reset_launch_counts,
 )
 from wgpu_3dgs_core_tpu_torch import bench as port_bench  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.entry import dryrun_multichip  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.parallel import (  # noqa: E402
+    initialize_multihost,
+    make_mesh,
+    render_sharded,
+)
+from wgpu_3dgs_core_tpu_torch.parallel.launch import (  # noqa: E402
+    free_port,
+    render_step,
+    spawn_ranks,
+)
 from wgpu_3dgs_core_tpu_torch.buffer import GaussianDisplayMode  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import cuda  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import probe as pr  # noqa: E402
@@ -263,6 +289,12 @@ SEGSUM_SYNTHETIC = (3_955_712, 1_000_000, 0)
 PORT_BENCH_ARGS: list[str] = []
 GRAD_PARITY = dict(gaussians=100_000, width=1920, height=1080, crop=256)
 PROFILE_FWD = 10  # forwards (or training steps) per profile measurement
+# Phases 20-21: the sharded image against render's (tests/test_sharded.py's
+# bar), the sharded and plain steps timed in turns, a spawn's time limit.
+SHARDED_TOL = 1e-5
+STEP_PAIRS = 10
+RANKS_TIMEOUT = 300.0
+GRAD_NAMES = ("means", "cov3d", "colour", "opacity", "sh")
 ADAM_STEPS = 3
 LEARNING_RATE = 5e-3  # fit()'s default
 # The card's published rates (H100 SXM data sheet, at 700 W): device memory
@@ -292,6 +324,7 @@ KERNEL_KINDS = (
     ("reduce/scan", "Scan"),
     ("copy/fill", "Memcpy"),
     ("copy/fill", "Memset"),
+    ("NCCL collectives", "nccl"),
     ("elementwise", "elementwise"),
 )
 
@@ -671,6 +704,19 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
+def ms_by_kind(fn):
+    """Device ms of one call of ``fn`` by kernel kind, largest first
+    (torch.profiler over PROFILE_FWD back-to-back calls, split by
+    utils/profiling.py::device_calls), and the operations of a call."""
+    calls = device_calls(fn, iters=PROFILE_FWD)
+    by_kind: dict[str, float] = {}
+    for e in (e for call in calls for e in call):
+        kind = kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us()
+    return {k: v / 1e3 / len(calls) for k, v in
+            sorted(by_kind.items(), key=lambda kv: -kv[1])}, len(calls[0])
+
+
 def phase_profile(device, fn, phase: str, what: str):
     """Where the time of ``fn`` (a bench-scene forward or training step)
     goes: the host's enqueue time against the wall time of back-to-back
@@ -685,17 +731,11 @@ def phase_profile(device, fn, phase: str, what: str):
     t2 = time.perf_counter()
     enqueue_ms = (t1 - t0) * 1e3 / PROFILE_FWD
     wall_ms = (t2 - t0) * 1e3 / PROFILE_FWD
-    calls = device_calls(fn, iters=PROFILE_FWD)
-    by_kind: dict[str, float] = {}
-    for e in (e for call in calls for e in call):
-        kind = kernel_kind(e.name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us()
-    per_call = {k: v / 1e3 / len(calls) for k, v in
-                sorted(by_kind.items(), key=lambda kv: -kv[1])}
+    per_call, n_ops = ms_by_kind(fn)
     device_ms = sum(per_call.values())
     print(f"phase {phase} profile ({PROFILE_FWD} back-to-back {what}s): "
           f"host enqueue {enqueue_ms:.3f} ms/{what}, wall {wall_ms:.3f} "
-          f"ms/{what}; {len(calls[0])} device kernels and "
+          f"ms/{what}; {n_ops} device kernels and "
           f"{device_ms:.3f} ms of device kernel time per {what} (busy "
           f"share {device_ms / wall_ms:.2f}); ms/{what} by kind: "
           + ", ".join(f"{k} {v:.3f}" for k, v in per_call.items()),
@@ -1846,6 +1886,193 @@ def phase_raster_redesign(device, inp, bi, counts, bounds):
           flush=True)
 
 
+# ------------------------------------------- phases 20-21: the sharded path
+
+
+def sharded_kwargs(kw):
+    """render_sharded's (and the plain render compared with it) keyword
+    arguments of a scene: its fragment capacity and pad_slack. No
+    max_rows: both then size the row stream by the fragment capacity, as
+    the JAX sharded path does."""
+    return dict(sh_deg=3, background=kw["background"],
+                max_fragments=kw["max_fragments"], pad_slack=kw["pad_slack"])
+
+
+def phase_sharded_one(device, scene):
+    """D=1 in this process (NCCL on the card): render_sharded against
+    render on the bench scene, image bit for bit and gradients; the path's
+    K1-K6 launches; the two steps in turns."""
+    _, _, cam, args, kw = scene
+    kw = sharded_kwargs(kw)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    initialize_multihost(f"localhost:{free_port()}", 1, 0, backend=backend,
+                         local_device_ids=None if device.type == "cpu"
+                         else [device.index])
+    try:
+        mesh = make_mesh()
+        x = leaves(args)
+
+        def step(sharded):
+            res = (render_sharded(*x[:4], cam, mesh, sh=x[4], **kw)
+                   if sharded else render(*x[:4], cam, sh=x[4], **kw))
+            loss = torch.mean(res.image ** 2)
+            return res, torch.autograd.grad(loss, x)
+
+        torch.cuda.synchronize(device)
+        reset_launch_counts()
+        res, grads = step(True)
+        torch.cuda.synchronize(device)
+        launches = {k: v for k, v in launch_counts().items()
+                    if k in RENDER_KERNELS}
+        if min(launches.values()) < 1:
+            fail(f"a kernel of the sharded step did not run: {launches}")
+        plain, want = step(False)
+        if bool(res.overflow) or bool(plain.overflow):
+            fail("the D=1 sharded render overflowed")
+        if not (torch.equal(bits(res.image), bits(plain.image))
+                and torch.equal(bits(res.transmittance),
+                                bits(plain.transmittance))):
+            fail("the D=1 sharded image differs from render's")
+        errs = {name: normalized_err(a.reshape(1, -1), b.reshape(1, -1))
+                for name, a, b in zip(GRAD_NAMES, grads, want)}
+        if not max(errs.values()) <= GRAD_TOL:
+            fail(f"D=1 sharded gradients differ from render's: {errs}")
+        same = all(torch.equal(a, b) for a, b in zip(grads, want))
+        times = {True: [], False: []}
+        for _ in range(STEP_PAIRS):
+            for sharded in (True, False):
+                times[sharded].append(cuda_ms(lambda: step(sharded),
+                                              warmup=0, iters=1))
+        kinds = {s: ms_by_kind(lambda: step(s))[0] for s in (True, False)}
+    finally:
+        torch.distributed.destroy_process_group()
+    med = {s: statistics.median(times[s]) for s in (True, False)}
+    dev = {s: sum(kinds[s].values()) for s in (True, False)}
+    print(f"phase 20 sharded D=1 ({backend}, one rank, bench scene, "
+          f"{FULL['n']} gaussians, {FULL['width']}x{FULL['height']}, "
+          f"max_fragments {kw['max_fragments']}, pad_slack "
+          f"{kw['pad_slack']}): image bit for bit render's, overflow "
+          f"False, gradients "
+          + ("bit for bit" if same else "normalized err " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items()))
+          + f" (tol {GRAD_TOL}), launches {launches}; training step in "
+          f"turns ({STEP_PAIRS} pairs, CUDA events) median sharded "
+          f"{med[True]:.3f} ms, render {med[False]:.3f} ms "
+          f"({med[True] / med[False]:.3f}x); device ms (profiler, mean of "
+          f"{PROFILE_FWD}) sharded {dev[True]:.3f}, render "
+          f"{dev[False]:.3f}, the sharded step's beyond render's by kind: "
+          + ", ".join(
+              f"{k} {extra:+.3f}" for extra, k in sorted(
+                  ((kinds[True].get(k, 0.0) - kinds[False].get(k, 0.0), k)
+                   for k in set(kinds[True]) | set(kinds[False])),
+                  reverse=True)[:5]), flush=True)
+    return dict(image=plain.image, grads=want)
+
+
+def check_sharded(name, out, image, grads, expect_kernels):
+    """The ranks of one spawn against render's image and gradients: every
+    rank's image equal, within SHARDED_TOL of render's, the shards'
+    gradients within GRAD_TOL, no overflow, every kernel of the path on
+    every rank. Returns (max image err, gradient errs, launches a rank,
+    strip stats)."""
+    img = out[0]["image"]
+    for r, it in enumerate(out):
+        if it["overflow"]:
+            fail(f"{name}: rank {r} overflowed ({it['stats']})")
+        if not torch.equal(bits(it["image"]), bits(img)):
+            fail(f"{name}: rank {r}'s replicated image differs from rank 0's")
+    err = float((img - image.detach().cpu()).abs().max())
+    if not err <= SHARDED_TOL:
+        fail(f"{name}: image differs from render's by {err}")
+    errs = {}
+    for k, gname in enumerate(GRAD_NAMES):
+        got = torch.cat([it["grads"][k] for it in out])
+        errs[gname] = normalized_err(got.reshape(1, -1),
+                                     grads[k].cpu().reshape(1, -1))
+    if not max(errs.values()) <= GRAD_TOL:
+        fail(f"{name}: gradients differ from render's: {errs}")
+    launches = [{k: v for k, v in it["launches"].items()
+                 if k in RENDER_KERNELS} for it in out]
+    if expect_kernels and min(min(ln.values()) for ln in launches) < 1:
+        fail(f"{name}: a kernel of the path did not run: {launches}")
+    return err, errs, launches, [it["stats"] for it in out]
+
+
+def phase_sharded_ranks(device, scene, one, mid):
+    """D=2 and D=4 ranks on this card, spawned by parallel/launch.py under
+    gloo (NCCL takes no two ranks on one card): the bench scene at D=2
+    with the all_to_all exchange, the mid scene at D=4 with both, each
+    against render; then dryrun_multichip(2)."""
+    _, _, cam, args, kw = scene
+    kw = sharded_kwargs(kw)
+    on_card = device.type == "cuda"
+    where = "cuda" if on_card else "cpu"
+    arrays = [a.detach().cpu().numpy() for a in args]
+    t0 = time.perf_counter()
+    out = [o[0] for o in spawn_ranks(
+        render_step, 2, (arrays, cam, [kw], None, True, STEP_PAIRS),
+        backend="gloo", device=where, timeout=RANKS_TIMEOUT)]
+    t_bench = time.perf_counter() - t0
+    err, errs, launches, stats = check_sharded(
+        "D=2 bench", out, one["image"], one["grads"], on_card)
+    if not all(it["identical"] for it in out):
+        fail("D=2: two backward passes gave different gradients")
+    frags = [s["fragments"] for s in stats]
+    print(f"phase 21 sharded D=2 (gloo, {len(out)} ranks on one card, "
+          f"all_to_all, bench scene): image max abs err {err:.3g} (tol "
+          f"{SHARDED_TOL}), gradients normalized err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tol {GRAD_TOL}), overflow False, two backward passes "
+          f"bit-identical; launches by rank {launches}; strips: routed "
+          f"{[s['routed'] for s in stats]} of route_cap "
+          f"{stats[0]['route_cap']} a source, fragments {frags} of f_cap "
+          f"{stats[0]['f_cap']} (max/mean "
+          f"{max(frags) / statistics.mean(frags):.4f}), tile rows "
+          f"{[s['rows'] for s in stats]}; spawn {t_bench:.1f} s (the "
+          f"ranks' own work {max(it['seconds'] for it in out):.1f} s)",
+          flush=True)
+    print("phase 21 times, gloo staging through the host, one card: not a "
+          "multi-GPU number: training step median by rank "
+          + ", ".join(f"{statistics.median(it['step_ms']):.1f}"
+                      for it in out)
+          + f" ms ({STEP_PAIRS} steps); render's D=1 step in phase 20",
+          flush=True)
+
+    mcam, margs, (mf, _), _ = mid
+    marrays = [a.detach().cpu().numpy() for a in margs]
+    cases = [dict(sh_deg=3, background=BG, max_fragments=mf, exchange=ex)
+             for ex in ("all_to_all", "all_gather")]
+    x = leaves(margs)
+    res = render(*x[:4], mcam, sh=x[4], sh_deg=3, background=BG,
+                 max_fragments=mf)
+    want = torch.autograd.grad(torch.mean(res.image ** 2), x)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(render_step, 4, (marrays, mcam, cases),
+                        backend="gloo", device=where, timeout=RANKS_TIMEOUT)
+    notes = []
+    for k, case in enumerate(cases):
+        err, errs, launches, stats = check_sharded(
+            f"D=4 mid {case['exchange']}", [o[k] for o in ranks], res.image,
+            want, on_card)
+        frags = [s["fragments"] for s in stats]
+        notes.append(
+            f"{case['exchange']}: image err {err:.3g}, gradients worst "
+            f"{max(errs.values()):.3g}, routed "
+            f"{[s['routed'] for s in stats]}, fragments {frags} (max/mean "
+            f"{max(frags) / statistics.mean(frags):.4f}), launches rank 0 "
+            f"{launches[0]}")
+    t_mid = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss = dryrun_multichip(2, device=where, backend="gloo")
+    print(f"phase 21 sharded D=4 (gloo, one card, mid scene {MID['n']} "
+          f"gaussians, {MID['width']}x{MID['height']}, tol {SHARDED_TOL} / "
+          f"{GRAD_TOL}): " + "; ".join(notes) + f"; spawn {t_mid:.1f} s "
+          f"(the ranks' own work {max(o[-1]['seconds'] for o in ranks):.1f}"
+          f" s); "
+          f"dryrun_multichip(2, gloo) loss {loss:.6g} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
 RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
                                     "uncompact")
@@ -1920,8 +2147,12 @@ def run(device: torch.device):
     phase_ellipse(scene)
     phase_raster_redesign(device, inp, bi, counts, bounds)
     t19 = time.perf_counter()
+    one = phase_sharded_one(device, scene)
+    phase_sharded_ranks(device, scene, one, mid)
+    t21 = time.perf_counter()
     print(f"wall time: phases 1-12 {t12 - t0:.1f} s, phases 13-19 "
-          f"{t19 - t12:.1f} s; torch.profiler: "
+          f"{t19 - t12:.1f} s, phases 20-21 {t21 - t19:.1f} s; "
+          f"torch.profiler: "
           + ", ".join(f"{k} {v}" for k, v in PROFILER_STATS.items()),
           flush=True)
     return {"kernels": [

@@ -17,7 +17,9 @@ bin_splats). The measurement path adds K9 and K10, the rasterizer and
 the segment sums stripped level by level (ops/variants.py), and K11, a
 probe of launches bounded by a count on the device (ops/probe.py), which
 the tools (tools/) check and time. On CPU tensors each runs its plain
-torch version.
+torch version. The sharded renderer (parallel/) runs the render path's
+kernels on every rank of a torch.distributed group; entry.py holds the
+entry points: a forward render and one sharded training step.
 Entry points run on the card unless they are given CPU tensors or
 ``device="cpu"``.
 """
