@@ -125,7 +125,24 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     normalized, no overflow, each rank's K1-K6 launches, each strip's
     routed splats, route capacity and fragments, two backward passes
     bit-identical at D=2; its times labelled as one card through gloo,
-    not a multi-GPU number; then entry.dryrun_multichip(2) under gloo.
+    not a multi-GPU number; then entry.dryrun_multichip(2) under gloo;
+22. the SPZ slice: the bench scene's gaussians through
+    Gaussians.from_soa(.., SPZ) with the default options, write_to_file
+    into a temporary directory, read_from_file and to_soa, once on the
+    native codec (utils/native.py; the phase fails if it did not load) and
+    once on the numpy path: every encoded byte and decoded field equal
+    between the two but the scales (a code one step apart only on a
+    rounding tie, a decoded scale within 1 ulp: numpy's f32 log and exp
+    round apart from the C library's), the SpzGaussians read back equal
+    to those written; the decoded scene uploaded in the default layout and
+    with NORM8 SH and rendered at 1920x1080 at capacities measured on it:
+    K1, K2, K3 and K8's unpack launched once each, no overflow, K1 and K2
+    bit for bit and K3 within 3e-5 of their plain versions on its stream,
+    the unpack held as in phase 11, the image's difference from phase 4's
+    printed (SPZ is lossy: a record, not a gate); examples/model.spz at
+    256x192 within 1e-4 of render_reference; each step's host time on
+    both paths, the file's bytes, the upload and render times, beside the
+    card's name and power limit.
 
 Then a JSON line of the kernels (launches on the training step, for K7 and
 K8 on phases 11-12, for K9-K11 on the tools' runs of phases 13-15; errors;
@@ -141,11 +158,13 @@ CUDA_VISIBLE_DEVICES names, else card 0.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -170,8 +189,10 @@ from wgpu_3dgs_core_tpu_torch import (  # noqa: E402
     pack,
     unpack,
     GaussianLayout,
+    Gaussians,
     GaussiansBuffer,
     GaussianSoA,
+    GaussiansSource,
     GaussianTransform,
     TrainableGaussians,
     launch_counts,
@@ -239,6 +260,8 @@ from wgpu_3dgs_core_tpu_torch.tools import (  # noqa: E402
     grad_parity,
     probe_dyngrid as k11,
 )
+from wgpu_3dgs_core_tpu_torch.models.spz import read_spz  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.utils import native  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.utils.numeric import cast_u8  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.utils.profiling import (  # noqa: E402
     PROFILER_STATS,
@@ -295,6 +318,22 @@ SHARDED_TOL = 1e-5
 STEP_PAIRS = 10
 RANKS_TIMEOUT = 300.0
 GRAD_NAMES = ("means", "cov3d", "colour", "opacity", "sh")
+# Phase 22: the repo's SPZ example and its render size, and the layout with
+# quantized SH the decoded bench scene is uploaded in beside the default.
+EXAMPLE_SPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "model.spz")
+SPZ_SMALL = dict(width=256, height=192)
+SPZ_QUANT_LAYOUT = GaussianLayout(sh=ShFormat.NORM8)
+# The SPZ codecs' native and numpy paths hold every encoded byte and every
+# decoded field bit for bit but the scales': their log and exp are numpy's
+# f32 ones on one path and the C library's logf and expf on the other,
+# which round differently by an ulp. So a scale whose code 16 (ln s + 10)
+# lies within TIE_TOL of a half (in f64) may encode one step apart, and a
+# decoded scale exp(q / 16 - 10) may differ by SCALE_ULPS
+# (tests/test_native.py holds that decode within rtol 1e-6).
+SPZ_FIELDS = ("positions", "rotations", "alphas", "colors", "shs")
+TIE_TOL = 1e-4
+SCALE_ULPS = 1
 ADAM_STEPS = 3
 LEARNING_RATE = 5e-3  # fit()'s default
 # The card's published rates (H100 SXM data sheet, at 700 W): device memory
@@ -2073,6 +2112,186 @@ def phase_sharded_ranks(device, scene, one, mid):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+@contextlib.contextmanager
+def numpy_codecs():
+    """The SPZ codecs' numpy path: models/spz.py asks utils/native for the
+    library on every call, so it takes the numpy path while this holds."""
+    get_lib = native.get_lib
+    native.get_lib = lambda: None
+    try:
+        yield
+    finally:
+        native.get_lib = get_lib
+
+
+def host_ms(fn):
+    """(fn's result, its host time in ms)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def scale_ties(native_q, numpy_q, scale) -> int:
+    """The encoded scales where the native and numpy codecs differ: each
+    one step apart and on a rounding tie (see TIE_TOL). Returns their
+    count."""
+    diff = native_q != numpy_q
+    steps = np.abs(native_q[diff].astype(np.int32) - numpy_q[diff])
+    code = (np.log(scale[diff].astype(np.float64)) + 10.0) * 16.0
+    off_tie = np.abs(code - np.floor(code) - 0.5)
+    if diff.any() and not (steps.max() == 1 and off_tie.max() <= TIE_TOL):
+        fail(f"SPZ encode: native and numpy scales differ off a rounding "
+             f"tie (steps {steps.max()}, {off_tie.max():.3g} from a half)")
+    return int(diff.sum())
+
+
+def spz_round_trip(soa, path):
+    """The SPZ round trip at full width on the current codec path:
+    Gaussians.from_soa(.., SPZ), write_to_file, read_from_file, to_soa.
+    Returns (the SpzGaussians written, the one read back, the decoded
+    GaussianSoA, host ms by step)."""
+    written, enc = host_ms(lambda: Gaussians.from_soa(soa,
+                                                      GaussiansSource.SPZ))
+    _, wr = host_ms(lambda: written.write_to_file(path))
+    read, rd = host_ms(lambda: Gaussians.read_from_file(path,
+                                                        GaussiansSource.SPZ))
+    decoded, dec = host_ms(read.to_soa)
+    if read.data != written.data:
+        fail("the SpzGaussians read back differ from those written")
+    return written.data, read.data, decoded, dict(encode=enc, write=wr,
+                                                  read=rd, decode=dec)
+
+
+def check_spz_render(device, decoded, layout, cam, kw_base):
+    """Upload the decoded scene in ``layout``, render it through K1-K3 at
+    capacities measured on it, unpack it through K8, and hold each kernel
+    against its plain version on that stream. Returns (the image, upload
+    ms, render ms, launches, K3's max abs err, K8's max abs err)."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    buf = GaussiansBuffer.new(decoded, layout, device)
+    torch.cuda.synchronize(device)
+    up_ms = (time.perf_counter() - t0) * 1e3
+    args = unpack_gaussians(buf.data)
+    max_fragments, max_rows = measure_capacities(args[0], args[1], args[3],
+                                                 cam)
+    kw = dict(kw_base, max_fragments=max_fragments, max_rows=max_rows)
+    transform = GaussianTransform(sh_deg=3)
+
+    def forward():
+        return render_gaussians(buf, cam, transform, **kw)
+
+    torch.cuda.synchronize(device)
+    reset_launch_counts()
+    res = forward()
+    bundle = ub.unpack_bundle(buf, MODEL)
+    outs = bundle.dispatch(len(buf))
+    torch.cuda.synchronize(device)
+    launches = {k: v for k, v in launch_counts().items()
+                if k in FORWARD_KERNELS + ("kernel_bundle",)}
+    if any(v != 1 for v in launches.values()):
+        fail(f"SPZ scene {layout}: K1-K3 and K8 did not launch once each: "
+             f"{launches}")
+    if bool(res.overflow):
+        fail(f"SPZ scene {layout}: the render overflowed its capacities")
+    if not (tuple(res.image.shape) == (cam.height, cam.width, 3)
+            and torch.isfinite(res.image).all()):
+        fail(f"SPZ scene {layout}: bad image")
+    inp = kernel_inputs(args, cam, max_fragments, max_rows, kw["pad_slack"],
+                        background=kw["background"])
+    compare_expand(inp)
+    lens = inp["k3"][2]
+    densest = int(torch.argmax(lens))
+    picks = np.random.default_rng(0).choice(lens.shape[0], 63, replace=False)
+    e3 = compare_k3(inp, tiles=sorted(set(picks.tolist()) | {densest}))
+    e8, _ = check_unpack(outs, buf, layout)
+    return res.image, up_ms, cuda_ms(forward), launches, e3, e8
+
+
+def phase_spz(device, scene, forward, card):
+    """The SPZ slice: the bench scene through SPZ on the host (the native
+    codec against the numpy one), rendered on the card through K1-K3 and
+    unpacked through K8; then examples/model.spz against the reference
+    renderer."""
+    soa, _, cam, _, kw = scene
+    if not native.available():
+        fail("the native SPZ codec did not build or load (utils/native.py)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench.spz")
+        spz, read, decoded, ms = spz_round_trip(soa, path)
+        nbytes = os.path.getsize(path)
+        with numpy_codecs():
+            spz_np, _, _, ms_np = spz_round_trip(soa, path)
+            decoded_np = GaussianSoA.from_spz(read)
+    if not (spz_np.header == spz.header and all(
+            np.array_equal(getattr(spz_np, f), getattr(spz, f))
+            for f in SPZ_FIELDS)):
+        fail("SPZ encode: the native and numpy codecs differ")
+    ties = scale_ties(spz.scales, spz_np.scales, soa.scale)
+    if not all(getattr(decoded, f).tobytes() == getattr(decoded_np, f)
+               .tobytes() for f in ("rot", "pos", "color", "sh")):
+        fail("SPZ decode: the native and numpy codecs differ")
+    scale_ulps = np.abs(decoded.scale.view(np.int32).astype(np.int64)
+                        - decoded_np.scale.view(np.int32))
+    if not scale_ulps.max() <= SCALE_ULPS:
+        fail(f"SPZ decode: native and numpy scales differ by "
+             f"{scale_ulps.max()} ulps")
+
+    original = forward().image
+    base = dict(background=kw["background"], pad_slack=kw["pad_slack"])
+    notes, times = [], {}
+    for name, layout in (("default", GaussianLayout()),
+                         ("sh norm8", SPZ_QUANT_LAYOUT)):
+        image, up_ms, fwd_ms, launches, e3, e8 = check_spz_render(
+            device, decoded, layout, cam, base)
+        times[name] = (up_ms, fwd_ms)
+        diff = (image - original).abs()
+        notes.append(f"{name} layout: launches {launches}, K1/K2 "
+                     f"bit-identical, K3 max abs err {e3:.3g} (tol "
+                     f"{K3_TOL}), K8 unpack max abs err {e8:.3g}, image vs "
+                     f"phase 4's of the original max abs diff "
+                     f"{float(diff.max()):.4g} mean {float(diff.mean()):.4g} "
+                     f"(SPZ is lossy: a record, not a gate)")
+        del image, diff
+
+    small = read_spz(EXAMPLE_SPZ)
+    ssoa = GaussianSoA.from_spz(small)
+    sbuf = GaussiansBuffer.new(ssoa, GaussianLayout(), device)
+    scam = Camera.look_at(eye=(0.0, -0.5, -4.0), target=(0.0, 0.0, 0.0),
+                          fov_y=0.9, **SPZ_SMALL)
+    sres = render_gaussians(sbuf, scam, GaussianTransform(sh_deg=3),
+                            background=BG)
+    means, cov6, color, opac, sh = unpack_gaussians(sbuf.data)
+    sref = render_reference(means, cov6, color, opac, scam, sh=sh, sh_deg=3,
+                            background=BG)
+    serr = float((sres.image - sref).abs().max())
+    if bool(sres.overflow) or not serr <= SLICE_TOL:
+        fail(f"examples/model.spz differs from render_reference by {serr}")
+    if not float((sres.image - torch.tensor(BG, device=device)).abs()
+                 .max()) > 0.1:
+        fail("examples/model.spz rendered nothing")
+
+    print(f"phase 22 SPZ slice ({len(soa)} gaussians, v{spz.header.version} "
+          f"sh_deg {spz.header.sh_degree} frac {spz.header.fractional_bits}, "
+          f"{cam.width}x{cam.height}, pad_slack {kw['pad_slack']}): native "
+          f"codec loaded; native vs numpy: encode bit-identical but "
+          f"{ties} of {spz.scales.size} scales one step apart on a rounding "
+          f"tie (tol {TIE_TOL} from a half), decode of the same bytes "
+          f"bit-identical but {int((scale_ulps > 0).sum())} scales within "
+          f"{scale_ulps.max()} ulp (tol {SCALE_ULPS}); read back == "
+          f"written; " + "; ".join(notes)
+          + f"; examples/model.spz ({len(small)} gaussians, v"
+          f"{small.header.version}) at {scam.width}x{scam.height} vs "
+          f"render_reference max abs err {serr:.3g} (tol {SLICE_TOL})",
+          flush=True)
+    print(f"phase 22 times ({card}), host ms at {len(soa)} gaussians: "
+          + ", ".join(f"{step} native {ms[step]:.1f} / numpy "
+                      f"{ms_np[step]:.1f}" for step in ms)
+          + f"; file {nbytes} bytes (gzip level 9); upload and render ms: "
+          + ", ".join(f"{name} upload {t[0]:.1f} render {t[1]:.3f}"
+                      for name, t in times.items()), flush=True)
+
+
 FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
 RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
                                     "uncompact")
@@ -2102,7 +2321,7 @@ KERNELS = (
 )
 
 
-def run(device: torch.device):
+def run(device: torch.device, card: str):
     t0 = time.perf_counter()
     cases = bundle_cases(device)
     phase_build(bundle_sources(cases))
@@ -2150,8 +2369,11 @@ def run(device: torch.device):
     one = phase_sharded_one(device, scene)
     phase_sharded_ranks(device, scene, one, mid)
     t21 = time.perf_counter()
+    phase_spz(device, scene, forward, card)
+    t22 = time.perf_counter()
     print(f"wall time: phases 1-12 {t12 - t0:.1f} s, phases 13-19 "
-          f"{t19 - t12:.1f} s, phases 20-21 {t21 - t19:.1f} s; "
+          f"{t19 - t12:.1f} s, phases 20-21 {t21 - t19:.1f} s, phase 22 "
+          f"{t22 - t21:.1f} s; "
           f"torch.profiler: "
           + ", ".join(f"{k} {v}" for k, v in PROFILER_STATS.items()),
           flush=True)
@@ -2181,7 +2403,7 @@ def main() -> int:
     ).stdout.strip()
     print(f"device: {name}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
-    summary = run(device)
+    summary = run(device, smi)
     print(json.dumps(summary))
     print(smi)
     print(json.dumps({"ok": True, "device": {

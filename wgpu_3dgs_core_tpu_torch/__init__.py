@@ -4,7 +4,12 @@ Hopper (sm_90a).
 
 The JAX package ``wgpu_3dgs_core_tpu`` is the reference this port is held
 against; this package imports ``torch`` and never ``jax``. Module names
-mirror the JAX package's. The render path runs six kernels built from
+mirror the JAX package's. Scenes are read and written on the host in both
+of the reference's formats (models/): PLY, and SPZ, whose quantization
+codecs run in numpy or, for large arrays, in the port's own build of
+``csrc/spz_codec.cpp`` (utils/native.py, ``g++`` into ``_build/spz/``);
+``Gaussians`` dispatches by source and ``GaussianSoA`` is the canonical
+form that ``GaussiansBuffer`` uploads. The render path runs six kernels built from
 ``csrc/`` on first use (ops/cuda.py): K1 and K2, the two levels of
 fragment expansion (ops/expand.py); K3 and K4, the forward tile rasterizer
 and its backward (ops/rasterize.py); K5 and K6, the backward's segment
