@@ -142,7 +142,21 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     printed (SPZ is lossy: a record, not a gate); examples/model.spz at
     256x192 within 1e-4 of render_reference; each step's host time on
     both paths, the file's bytes, the upload and render times, beside the
-    card's name and power limit.
+    card's name and power limit;
+23. the training step by stage: the attribution tools (tools/
+    profile_components.py, bench_bin.py, bench_bwd.py --newtail,
+    bench_nscale.py) in this process on the port bench's scene, 3 calls
+    a reading, each printing a line per stage (device ms, operations,
+    host enqueue against wall ms, launches, top kinds) and its JSON line,
+    beside the card's name and power limit; every stage on the card
+    without overflow, the stages that run kernels launching them (bin
+    K1, K2; gather and kernel_fwd K3; kernel_fwd_bwd K3, K4; reorder
+    K5, K6; step K1-K6; bench_bin's rows K1, expand K1, K2), the
+    operations of the step's prefixes (project, color, ..., step) and of
+    bench_bin's (counts to ranges) never decreasing; the step stage's
+    device ms and operations printed beside phase 9's (a record: phase 9
+    profiles this script's own scene, u8 colour and opacity at measured
+    capacities).
 
 Then a JSON line of the kernels (launches on the training step, for K7 and
 K8 on phases 11-12, for K9-K11 on the tools' runs of phases 13-15; errors;
@@ -254,11 +268,18 @@ from wgpu_3dgs_core_tpu_torch.render.renderer import (  # noqa: E402
     unpack_gaussians,
 )
 from wgpu_3dgs_core_tpu_torch.tools import (  # noqa: E402
+    bench_bin,
+    bench_bwd,
     bench_kernel_variants as k9,
+    bench_nscale,
     bench_segsum as k10,
     expand_tables,
     grad_parity,
     probe_dyngrid as k11,
+    profile_components,
+)
+from wgpu_3dgs_core_tpu_torch.tools.stages import (  # noqa: E402
+    FORWARD_PREFIX,
 )
 from wgpu_3dgs_core_tpu_torch.models.spz import read_spz  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.utils import native  # noqa: E402
@@ -267,6 +288,8 @@ from wgpu_3dgs_core_tpu_torch.utils.profiling import (  # noqa: E402
     PROFILER_STATS,
     device_calls,
     device_kernel_ms,
+    host_pace_ms,
+    kind_ms,
 )
 
 MID = dict(n=65_536, width=512, height=512, seed=0)
@@ -347,25 +370,6 @@ FP32_FLOPS_S = 67e12
 # (weight, 3 FMAs, 1 - alpha, T) and 47 more in K4 (colour terms, prefix,
 # dalpha, the chain to q, the conic and x/y, T).
 EVAL_FLOPS, K3_BLEND_FLOPS, K4_BLEND_FLOPS = 20, 9, 47
-# Device kernels by kind, for the profile: (kind, substring of the name).
-KERNEL_KINDS = (
-    ("K3 rasterize_fwd", "rasterize_fwd_kernel"),
-    ("K4 rasterize_bwd", "rasterize_bwd_kernel"),
-    ("K5 prep", "segment_sums_prep_kernel"),
-    ("K5 segment_sums", "segment_sums_kernel"),
-    ("K6 uncompact", "uncompact_kernel"),
-    ("K2 expand_fragments", "expand_fragments_kernel"),
-    ("K1 expand_rows", "expand_rows_kernel"),
-    ("radix sort", "RadixSort"),
-    ("cat/stack", "CatArray"),
-    ("index/gather", "index"),
-    ("reduce/scan", "reduce"),
-    ("reduce/scan", "Scan"),
-    ("copy/fill", "Memcpy"),
-    ("copy/fill", "Memset"),
-    ("NCCL collectives", "nccl"),
-    ("elementwise", "elementwise"),
-)
 
 
 def fail(msg: str):
@@ -736,40 +740,22 @@ def phase_full(device, errs, scene):
     return ms, errs, forward, fwd_ms, inp
 
 
-def kernel_kind(name: str) -> str:
-    for kind, key in KERNEL_KINDS:
-        if key in name:
-            return kind
-    return "other"
-
-
 def ms_by_kind(fn):
     """Device ms of one call of ``fn`` by kernel kind, largest first
     (torch.profiler over PROFILE_FWD back-to-back calls, split by
-    utils/profiling.py::device_calls), and the operations of a call."""
+    utils/profiling.py::device_calls, kinds by its KERNEL_KINDS), and the
+    operations of a call."""
     calls = device_calls(fn, iters=PROFILE_FWD)
-    by_kind: dict[str, float] = {}
-    for e in (e for call in calls for e in call):
-        kind = kernel_kind(e.name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us()
-    return {k: v / 1e3 / len(calls) for k, v in
-            sorted(by_kind.items(), key=lambda kv: -kv[1])}, len(calls[0])
+    return kind_ms(calls), len(calls[0])
 
 
-def phase_profile(device, fn, phase: str, what: str):
+def phase_profile(fn, phase: str, what: str):
     """Where the time of ``fn`` (a bench-scene forward or training step)
     goes: the host's enqueue time against the wall time of back-to-back
     calls (host-bound when they are equal), and the device kernels per
-    call by torch.profiler. Busy share = device kernel time / wall time."""
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    for _ in range(PROFILE_FWD):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize(device)
-    t2 = time.perf_counter()
-    enqueue_ms = (t1 - t0) * 1e3 / PROFILE_FWD
-    wall_ms = (t2 - t0) * 1e3 / PROFILE_FWD
+    call by torch.profiler. Busy share = device kernel time / wall time.
+    Returns (device kernel ms, device kernels) per call."""
+    enqueue_ms, wall_ms = host_pace_ms(fn, iters=PROFILE_FWD)
     per_call, n_ops = ms_by_kind(fn)
     device_ms = sum(per_call.values())
     print(f"phase {phase} profile ({PROFILE_FWD} back-to-back {what}s): "
@@ -779,6 +765,7 @@ def phase_profile(device, fn, phase: str, what: str):
           f"share {device_ms / wall_ms:.2f}); ms/{what} by kind: "
           + ", ".join(f"{k} {v:.3f}" for k, v in per_call.items()),
           flush=True)
+    return device_ms, n_ops
 
 
 def leaves(args):
@@ -2292,9 +2279,79 @@ def phase_spz(device, scene, forward, card):
                       for name, t in times.items()), flush=True)
 
 
+# Phase 23: the attribution tools' arguments (the bench scene and
+# capacities, 3 calls a reading: a profiled session of a training step's
+# host operations takes seconds to read back), the kernels each stage of
+# theirs must launch, and the stage sequences whose device operations
+# must not decrease (prefixes).
+TOOL_ARGS = ["--iters", "3"]
+PREFIXES = (
+    ("profile_components", FORWARD_PREFIX + ("fwd", "step")),
+    ("bench_bin", bench_bin.BIN_STAGES),
+)
+
+
+def phase_tools(step_profile, card: str):
+    """Phase 23 (see the module's docstring)."""
+    t0 = time.perf_counter()
+    runs, seconds = {}, {}
+    for tool, main, argv in (
+            ("profile_components", profile_components.main, TOOL_ARGS),
+            ("bench_bin", bench_bin.main, TOOL_ARGS),
+            ("bench_bwd --newtail", bench_bwd.main, TOOL_ARGS
+             + ["--newtail"]),
+            ("bench_nscale", bench_nscale.main, TOOL_ARGS)):
+        t = time.perf_counter()
+        runs[tool] = main(argv)
+        seconds[tool] = time.perf_counter() - t
+    name = torch.cuda.get_device_name(0)
+    for tool, out in runs.items():
+        if out["device"] != name:
+            fail(f"{tool} ran on {out['device']}, not {name}")
+        for stage, r in out["stages"].items():
+            if r["overflow"]:
+                fail(f"{tool} {stage} overflowed its capacities")
+            missing = [k for k in TOOL_KERNELS.get(stage, ())
+                       if r["launches"].get(k, 0) < 1]
+            if missing:
+                fail(f"{tool} {stage} did not launch {missing}: "
+                     f"{r['launches']}")
+    for tool, order in PREFIXES:
+        ops = [runs[tool]["stages"][s]["ops"] for s in order]
+        if any(b < a for a, b in zip(ops, ops[1:])):
+            fail(f"{tool}: the operations of {order} decrease: {ops}")
+    stages = runs["profile_components"]["stages"]
+    glue = runs["profile_components"]["derived"]["glue_bwd"]
+    print(f"phase 23 attribution tools ({len(runs)} runs, "
+          f"{sum(len(o['stages']) for o in runs.values())} stages, "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + "): no overflow, kernels "
+          "launched where due, prefix operations "
+          + "; ".join(f"{tool} " + " <= ".join(
+              str(runs[tool]["stages"][s]["ops"]) for s in order)
+              for tool, order in PREFIXES)
+          + f"; step stage {stages['step']['device_ms']:.3f} ms device, "
+          f"{stages['step']['ops']} operations, host enqueue "
+          f"{stages['step']['enqueue_ms']:.3f} / wall "
+          f"{stages['step']['wall_ms']:.3f} ms (phase 9: "
+          f"{step_profile[0]:.3f} ms, {step_profile[1]} operations); "
+          f"glue_bwd {glue['device_ms']:.3f} ms; {card}", flush=True)
+
+
 FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
 RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
                                     "uncompact")
+TOOL_KERNELS = {
+    "bin": FORWARD_KERNELS[:2],
+    "gather": ("rasterize_fwd",),
+    "kernel_fwd": ("rasterize_fwd",),
+    "kernel_fwd_bwd": ("rasterize_fwd", "rasterize_bwd"),
+    "reorder": ("segment_sums", "uncompact"),
+    "step": RENDER_KERNELS,
+    "rows": ("expand_rows",),
+    "expand": FORWARD_KERNELS[:2],
+}
 KERNELS = (
     ("expand_rows", "wgpu_3dgs_core_tpu_torch/csrc/expand.cu",
      "wgpu_3dgs_core_tpu/ops/expand.py:571"),
@@ -2330,13 +2387,13 @@ def run(device: torch.device, card: str):
     phase_spec(device)
     scene = bench_scene(device)
     ms, errs, forward, fwd_ms, inp = phase_full(device, errs, scene)
-    phase_profile(device, forward, "5", "forward")
+    phase_profile(forward, "5", "forward")
     errs = errs + phase_backward_kernels(device, mid)
     phase_spec_grads(device)
     launches, ms_bwd, errs, train_step, bi = phase_train(device, scene, inp,
                                                          fwd_ms, errs)
     ms.update(ms_bwd)
-    phase_profile(device, train_step, "9", "training step")
+    step_profile = phase_profile(train_step, "9", "training step")
     bounds, counts = kernel_bounds(inp, bi)
     print(f"bounds (H100 SXM: {HBM_BYTES_S:.3g} B/s, {FP32_FLOPS_S:.3g} "
           f"FP32 flop/s): {counts['drawn']} drawn fragments, "
@@ -2371,9 +2428,11 @@ def run(device: torch.device, card: str):
     t21 = time.perf_counter()
     phase_spz(device, scene, forward, card)
     t22 = time.perf_counter()
+    phase_tools(step_profile, card)
+    t23 = time.perf_counter()
     print(f"wall time: phases 1-12 {t12 - t0:.1f} s, phases 13-19 "
           f"{t19 - t12:.1f} s, phases 20-21 {t21 - t19:.1f} s, phase 22 "
-          f"{t22 - t21:.1f} s; "
+          f"{t22 - t21:.1f} s, phase 23 {t23 - t22:.1f} s; "
           f"torch.profiler: "
           + ", ".join(f"{k} {v}" for k, v in PROFILER_STATS.items()),
           flush=True)

@@ -23,7 +23,10 @@ from wgpu_3dgs_core_tpu_torch.ops import binning as TB
 from wgpu_3dgs_core_tpu_torch.ops import expand as TE
 from wgpu_3dgs_core_tpu_torch.render import renderer as TRR
 
-from .test_rowtrim import H, W, _scene
+from wgpu_3dgs_core_tpu.ops.projection import project as jax_project
+from wgpu_3dgs_core_tpu.render.camera import Camera as JCamera
+
+from .test_rowtrim import H, W, _scene, random_scene
 from .torch_parity import K3_ATOL, nn, one_torch_thread, tt  # noqa: F401
 
 TX, TY = JB.num_tiles(W, H)
@@ -236,3 +239,61 @@ def test_rasterize_matches_jax_kernel(scene, f_cap, pad_slack):
     if bool(overflow):
         # The schedule's capacity cut tiles the stream holds.
         assert (nn(sched.draw_len) < end - start).any()
+
+
+# A2: the capacity counts' scene, a few thousand gaussians at 320x200.
+COUNT_N, COUNT_W, COUNT_H = 3000, 320, 200
+
+
+@pytest.fixture(scope="module")
+def count_scene():
+    """The JAX projection of a random scene at COUNT_W x COUNT_H: (xy,
+    extent, conic, op_eff (opacity, zero where masked), mask, tiles_x,
+    tiles_y) as numpy arrays and ints."""
+    cam = JCamera.look_at(eye=(0.0, 0.0, -6.0), target=(0.0, 0.0, 0.0),
+                          width=COUNT_W, height=COUNT_H, fov_y=0.9)
+    means, cov6, _, opac, _ = random_scene(COUNT_N, seed=5)
+    spl = jax_project(means, cov6, cam, opacity=opac)
+    arrays = [np.asarray(a) for a in (spl.xy, spl.extent, spl.conic,
+                                      opac * spl.mask, spl.mask)]
+    return (*arrays, *JB.num_tiles(COUNT_W, COUNT_H))
+
+
+@pytest.mark.parametrize("opacity_cull", [True, False])
+@pytest.mark.parametrize("cutoff_sq", [4.0, 9.0])
+def test_count_capacities_match_jax_counts(count_scene, opacity_cull,
+                                           cutoff_sq):
+    """count_capacities against the JAX count_rows and
+    count_fragments_exact (max_span_y from a host pass over the JAX
+    exact bounds), on the same splats: both counts equal."""
+    xy, extent, conic, op_eff, mask, tx, ty = count_scene
+    kw = dict(cutoff_sq=cutoff_sq, opacity_cull=opacity_cull)
+    bounds = JB._exact_bounds(xy, extent, conic, op_eff, mask, tx, ty, 0,
+                              cutoff_sq, opacity_cull)
+    span_x, span_y, live = (np.asarray(b) for b in bounds[4:7])
+    max_span_y = int(np.where(live & (span_x > 0), span_y, 0).max())
+    assert max_span_y > 1
+    want_rows = int(JB.count_rows(xy, extent, conic, op_eff, mask, tx, ty,
+                                  **kw))
+    want_frags = int(JB.count_fragments_exact(
+        xy, extent, conic, op_eff, mask, tx, ty, max_span_y=max_span_y,
+        **kw))
+    rows, frags = TB.count_capacities(
+        *(tt(a) for a in (xy, extent, conic, op_eff, mask)), tx, ty, **kw)
+    assert (int(rows), int(frags)) == (want_rows, want_frags)
+    assert want_frags > want_rows > 0
+
+
+def test_default_max_fragments_matches_jax():
+    """default_max_fragments, avg_overlap included, equals the JAX
+    heuristic for small and large n (the 1024 floor, the n * tiles cap)."""
+    for n in (0, 1, 3, 100, 2000, 1_000_000):
+        for tiles in ((1, 1), (10, 7), (120, 68)):
+            assert TB.default_max_fragments(n, *tiles) == (
+                JB.default_max_fragments(n, *tiles))
+            for overlap in (1.0, 8.0, 20.0):
+                assert TB.default_max_fragments(
+                    n, *tiles, avg_overlap=overlap) == (
+                    JB.default_max_fragments(n, *tiles,
+                                             avg_overlap=overlap)), (
+                    n, tiles, overlap)

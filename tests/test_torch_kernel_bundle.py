@@ -116,6 +116,27 @@ def test_map_add_dispatch():
     np.testing.assert_array_equal(got[:, 0], np.arange(n) + 1.0)
 
 
+def test_jax_keyword_names():
+    """The JAX package's keyword names: ``KernelBundleBuilder.kernel(fn=)``
+    and ``download(array=)``; the output downloaded by keyword equals the
+    JAX bundle's, downloaded by keyword, bit for bit."""
+    n = 300
+    (ja, jb), (ta, tb) = _both([np.arange(n, dtype=np.float32),
+                                np.full(n, 0.5, np.float32)])
+    want = J.download(array=(
+        J.KernelBundleBuilder()
+        .resource_layout(J.ResourceGroupLayout("inputs", arity=2))
+        .kernel(fn=_map_add).output(1, jnp.float32).build([[ja, jb]])
+        .dispatch(n)))
+    got = T.download(array=(
+        T.KernelBundleBuilder()
+        .resource_layout(T.ResourceGroupLayout("inputs", arity=2))
+        .kernel(fn=MAP_ADD).output(1, torch.float32).build([[ta, tb]])
+        .dispatch(n)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:, 0], np.arange(n) + 0.5)
+
+
 def test_map_add_with_override_constant():
     n = 64
     (ja, jb), (ta, tb) = _both([np.full(n, 2.0, np.float32),

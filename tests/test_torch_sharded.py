@@ -19,6 +19,7 @@ them, 64x48.
 
 import dataclasses
 import functools
+import json
 import os
 import subprocess
 import sys
@@ -34,6 +35,7 @@ from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 import wgpu_3dgs_core_tpu as J
 import wgpu_3dgs_core_tpu_torch as T
+from wgpu_3dgs_core_tpu.parallel import make_mesh as jax_make_mesh
 from wgpu_3dgs_core_tpu.parallel import pad_to_multiple as jax_pad
 from wgpu_3dgs_core_tpu.parallel.sharded import (
     _gather_rows as jax_gather_rows,
@@ -348,6 +350,7 @@ def test_four_ranks_transform_knobs(four_ranks):
 
 
 MULTIHOST_WORKER = textwrap.dedent("""
+    import json
     import sys
     import torch
     import torch.distributed as dist
@@ -362,6 +365,19 @@ MULTIHOST_WORKER = textwrap.dedent("""
     x = torch.tensor([float(pid + 1)])
     dist.all_reduce(x, group=mesh.get_group(0))
     assert float(x) == world * (world + 1) / 2
+    # make_mesh(n_devices, devices): the ranks the JAX make_mesh puts in
+    # its mesh for the same arguments; a rank outside the group raises.
+    for n, devices, want in json.loads(sys.argv[4]):
+        sub = make_mesh(n, devices=devices)
+        assert sub.mesh.tolist() == want, (n, devices, sub.mesh.tolist())
+        where = (want.index(pid),) if pid in want else None
+        assert sub.get_coordinate() == where, (n, devices, where)
+    for bad in ([world], [-1], [0, 0]):
+        try:
+            make_mesh(devices=bad)
+        except ValueError:
+            continue
+        raise AssertionError(f"make_mesh(devices={bad}) did not raise")
     dist.destroy_process_group()
     print(f"proc {pid}: multihost OK", flush=True)
 """)
@@ -370,11 +386,19 @@ MULTIHOST_WORKER = textwrap.dedent("""
 def test_initialize_multihost_two_processes():
     """Two processes through initialize_multihost over tcp://, as
     tests/_multihost_worker.py checks the JAX one: each gets its rank, a
-    second call is a no-op, the mesh spans both and its group reduces."""
+    second call is a no-op, the mesh spans both and its group reduces;
+    make_mesh over named ranks holds the ranks the JAX make_mesh takes of
+    the same device indices, and refuses ranks outside the group."""
+    jax_devices = jax.devices()
+    cases = [[n, devices, [int(d.id) for d in jax_make_mesh(
+                 n, devices=[jax_devices[i] for i in devices]).devices]]
+             for n, devices in ((None, [1, 0]), (1, [1, 0]), (None, [0, 1]),
+                                (1, [0, 1]), (2, [1, 0]))]
     addr = f"localhost:{free_port()}"
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     procs = [subprocess.Popen(
-        [sys.executable, "-c", MULTIHOST_WORKER, addr, "2", str(i)],
+        [sys.executable, "-c", MULTIHOST_WORKER, addr, "2", str(i),
+         json.dumps(cases)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for i in range(2)]
     outs = []

@@ -40,7 +40,7 @@ def _to_device(array, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
 
-def download(tensor: torch.Tensor) -> np.ndarray:
+def download(array: torch.Tensor) -> np.ndarray:
     """Device -> host transfer, the BufferWrapper.download analog
     (reference: src/buffer/mod.rs:27-101): waits for the work queued on a
     card, then copies. A failed transfer (a CUDA fault surfacing at the
@@ -48,9 +48,9 @@ def download(tensor: torch.Tensor) -> np.ndarray:
     :class:`DownloadBufferError`, as the reference's failed map does
     (src/error.rs:56-63)."""
     try:
-        if tensor.is_cuda:
-            torch.cuda.synchronize(tensor.device)
-        return tensor.detach().cpu().numpy()
+        if array.is_cuda:
+            torch.cuda.synchronize(array.device)
+        return array.detach().cpu().numpy()
     except RuntimeError as e:
         raise DownloadBufferError(str(e)) from e
 

@@ -423,10 +423,12 @@ def count_capacities(xy, extent, conic, op_eff, mask, tiles_x, tiles_y,
     return rows, total
 
 
-def default_max_fragments(n: int, tiles_x: int, tiles_y: int) -> int:
-    """Heuristic stream capacity, 8 tiles per gaussian rounded up to a
-    lane multiple. Prefer a measured capacity (render/renderer.py
-    measure_capacities)."""
-    cap = int(max(n * 8.0, 1024))
+def default_max_fragments(n: int, tiles_x: int, tiles_y: int,
+                          avg_overlap: float = 8.0) -> int:
+    """Heuristic stream capacity, ``avg_overlap`` tiles per gaussian
+    rounded up to a lane multiple. Prefer a measured capacity
+    (render/renderer.py measure_capacities): the heuristic wastes work or
+    overflows on scenes far from ``avg_overlap``."""
+    cap = int(max(n * avg_overlap, 1024))
     cap = min(cap, n * tiles_x * tiles_y) if n else 1024
     return -(-cap // 256) * 256

@@ -541,10 +541,10 @@ class KernelBundleBuilder:
         self._layouts.extend(layouts)
         return self
 
-    def kernel(self, kernel) -> "KernelBundleBuilder":
-        """Single-kernel module (main shader analog): a BundleKernel, or a
-        plain function alone (CPU dispatch only)."""
-        self._module = {"main": _as_kernel(kernel)}
+    def kernel(self, fn) -> "KernelBundleBuilder":
+        """Single-kernel module (main shader analog): ``fn`` a BundleKernel,
+        or a plain function alone (CPU dispatch only)."""
+        self._module = {"main": _as_kernel(fn)}
         self._entry_point = "main"
         return self
 

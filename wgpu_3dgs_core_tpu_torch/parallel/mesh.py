@@ -66,22 +66,30 @@ def initialize_multihost(
     return dist.get_rank()
 
 
-def make_mesh(n_devices: Optional[int] = None) -> DeviceMesh:
-    """1-D mesh named ``("data",)`` over the first ``n_devices`` ranks of
-    the default group (default: all of them). Every rank of the group
-    calls it. Its device type follows the group's backend: ``cuda`` under
-    NCCL, ``cpu`` under gloo (which also carries CUDA tensors, staged
-    through the host)."""
+def make_mesh(n_devices: Optional[int] = None,
+              devices: Optional[Sequence[int]] = None) -> DeviceMesh:
+    """1-D mesh named ``("data",)`` over the first ``n_devices`` of
+    ``devices``, a sequence of ranks of the default group (default: all
+    of them, in order), as the JAX ``make_mesh`` takes the first n of its
+    devices. Every rank of the group calls it. Its device type follows the
+    group's backend: ``cuda`` under NCCL, ``cpu`` under gloo (which also
+    carries CUDA tensors, staged through the host). A rank outside the
+    group, a rank named twice or an empty mesh raises ``ValueError``."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "initialize_multihost first")
     world = dist.get_world_size()
-    n = world if n_devices is None else int(n_devices)
-    if not 1 <= n <= world:
-        raise ValueError(f"a mesh of {n} ranks in a group of {world}")
+    ranks = list(range(world)) if devices is None else [int(r)
+                                                         for r in devices]
+    if any(not 0 <= r < world for r in ranks) or len(set(ranks)) < len(
+            ranks):
+        raise ValueError(f"mesh ranks {ranks} are not distinct ranks of a "
+                         f"group of {world}")
+    n = len(ranks) if n_devices is None else int(n_devices)
+    if not 1 <= n <= len(ranks):
+        raise ValueError(f"a mesh of {n} of the ranks {ranks}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, list(range(n)),
-                      mesh_dim_names=(DATA_AXIS,))
+    return DeviceMesh(device_type, ranks[:n], mesh_dim_names=(DATA_AXIS,))
 
 
 def gaussian_sharding(mesh: DeviceMesh) -> tuple:

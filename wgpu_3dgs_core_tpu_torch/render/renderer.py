@@ -175,6 +175,37 @@ def tile_local_stream(attrs_sorted, tile_sorted, tiles_x: int):
     return torch.cat([x_local[None], y_local[None], attrs_sorted[2:9]], dim=0)
 
 
+def attribute_columns(xy, conic, rgb, opacity, mask):
+    """The [9, N] attribute columns the binning carries to the rasterizer:
+    x, y, conic a/b/c, r, g, b, and the opacity, zero for culled
+    gaussians."""
+    opac = opacity * mask  # culled gaussians contribute nothing
+    return torch.cat([xy.T, conic.T, rgb.T, opac[None, :]], dim=0)
+
+
+def composite_tiles(tiles, written, background: tuple):
+    """K3's tiles where the schedule drew them, the background
+    elsewhere."""
+    bg_block = device_constant([*background, 1.0], tiles.device)
+    return torch.where(written[:, None, None], tiles,
+                       bg_block[None, :, None])
+
+
+def reorder_grads(dfrag, gauss_id, tile_id, tile_start, draw_len, tab_ints,
+                  overflow):
+    """The backward's tail: K4's gradients [9, F] of the stream's slots as
+    gradients [9, N] of the gaussians' attribute columns. One stable sort
+    of the slots by gaussian (drawn slots only), K5's sums over the
+    compacted gid column of the per-gaussian table's int rows
+    ``tab_ints``, K6 back to gaussian order; all zero on overflow."""
+    n = tab_ints.shape[1]
+    keys, perm = sort_keys(gauss_id, tile_id, tile_start, draw_len, n)
+    gid_col = gid_column_sorted(tab_ints, n)
+    comp = segment_sums_sorted(keys, perm, dfrag, gid_col, n)
+    d_cols = uncompact_columns(comp, gid_col, n)
+    return torch.where(overflow, 0.0, d_cols)
+
+
 class BinRasterize(torch.autograd.Function):
     """Binning + tiled rasterization, differentiable in ``attr_cols``.
 
@@ -220,15 +251,11 @@ class BinRasterize(torch.autograd.Function):
         (frags, gauss_id, tile_id, tile_start, tile_len, draw_len, tab_ints,
          tiles, overflow) = ctx.saved_tensors
         background, cutoff_sq, mode = ctx.args
-        n = tab_ints.shape[1]
         dfrag = rasterize_tiles_bwd(frags, tile_start, tile_len, draw_len,
                                     tiles, d_tiles.contiguous(), background,
                                     cutoff_sq, mode)
-        keys, perm = sort_keys(gauss_id, tile_id, tile_start, draw_len, n)
-        gid_col = gid_column_sorted(tab_ints, n)
-        comp = segment_sums_sorted(keys, perm, dfrag, gid_col, n)
-        d_cols = uncompact_columns(comp, gid_col, n)
-        d_cols = torch.where(overflow, 0.0, d_cols)
+        d_cols = reorder_grads(dfrag, gauss_id, tile_id, tile_start,
+                               draw_len, tab_ints, overflow)
         return (d_cols,) + (None,) * 12
 
 
@@ -244,16 +271,13 @@ def rasterize_splats(xy, depth, conic, extent, mask, rgb, opacity,
     schedule does not draw to the background. Differentiable in ``xy``,
     ``conic``, ``rgb`` and ``opacity`` (:class:`BinRasterize`).
     """
-    opac = opacity * mask  # culled gaussians contribute nothing
-    attr_cols = torch.cat([xy.T, conic.T, rgb.T, opac[None, :]], dim=0)
+    attr_cols = attribute_columns(xy, conic, rgb, opacity, mask)
     tiles, written, overflow = BinRasterize.apply(
         attr_cols, xy.detach(), extent.detach(), depth.detach(), mask,
         tiles_x, tiles_y, f_cap, background, cutoff_sq, mode, pad_slack,
         max_rows,
     )
-    bg_block = device_constant([*background, 1.0], xy.device)[None, :, None]
-    tiles = torch.where(written[:, None, None], tiles, bg_block)
-    return tiles, overflow
+    return composite_tiles(tiles, written, background), overflow
 
 
 def render(

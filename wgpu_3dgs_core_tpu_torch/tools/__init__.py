@@ -7,9 +7,17 @@
 - ``bench_kernel_variants``: K9, the forward rasterizer (K3) stripped
   level by level;
 - ``grad_parity``: the render path's gradients against the brute-force
-  reference at bench shape.
+  reference at bench shape;
+- ``profile_components``: the training step by stage (its forward's
+  prefixes, K3 and K4 alone, the backward's tail and N-scale autograd)
+  by device time, operations and the host's enqueue;
+- ``bench_bin``: the binning chain by stage;
+- ``bench_bwd``: the backward's work outside K4 (the tail, the N-scale
+  autograd, the tail's sub-pieces);
+- ``bench_nscale``: the N-scale autograd by piece.
 
-They run on the card unless given ``--device cpu``; the port bench is
+The first four run on the card unless given ``--device cpu``; the last
+four share ``stages`` and read on the card only. The port bench is
 ``python -m wgpu_3dgs_core_tpu_torch.bench``. ``expand_tables`` makes the
 segment tables K7's design finds hard, for the tests and chip_smoke.py.
 """

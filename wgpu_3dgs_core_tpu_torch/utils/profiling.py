@@ -34,6 +34,26 @@ PROFILE_TRIES = 3
 # What the profiled sessions of this process met: sessions, markers lost,
 # sessions with no device operation, sessions that kept a call short.
 PROFILER_STATS: collections.Counter = collections.Counter()
+# Device operations by kind: (kind, substring of the operation's name), the
+# first match wins.
+KERNEL_KINDS = (
+    ("K3 rasterize_fwd", "rasterize_fwd_kernel"),
+    ("K4 rasterize_bwd", "rasterize_bwd_kernel"),
+    ("K5 prep", "segment_sums_prep_kernel"),
+    ("K5 segment_sums", "segment_sums_kernel"),
+    ("K6 uncompact", "uncompact_kernel"),
+    ("K2 expand_fragments", "expand_fragments_kernel"),
+    ("K1 expand_rows", "expand_rows_kernel"),
+    ("radix sort", "RadixSort"),
+    ("cat/stack", "CatArray"),
+    ("index/gather", "index"),
+    ("reduce/scan", "reduce"),
+    ("reduce/scan", "Scan"),
+    ("copy/fill", "Memcpy"),
+    ("copy/fill", "Memset"),
+    ("NCCL collectives", "nccl"),
+    ("elementwise", "elementwise"),
+)
 
 
 def named_scope(name: str):
@@ -172,6 +192,38 @@ def device_calls(fn, *args, iters: int = 10, **kwargs) -> list:
             f"torch.profiler kept {len(best)} of {iters} calls whole in "
             f"{PROFILE_TRIES} sessions")
     return best
+
+
+def kernel_kind(name: str) -> str:
+    """The KERNEL_KINDS kind of a device operation's name, else "other"."""
+    for kind, key in KERNEL_KINDS:
+        if key in name:
+            return kind
+    return "other"
+
+
+def kind_ms(calls) -> dict:
+    """Device ms a call by kernel kind, largest first: the mean over
+    ``calls`` (device_calls' output) of each kind's summed time."""
+    by_kind: dict = collections.defaultdict(float)
+    for e in (e for call in calls for e in call):
+        by_kind[kernel_kind(e.name)] += e.time_range.elapsed_us()
+    return {k: v / 1e3 / len(calls) for k, v in
+            sorted(by_kind.items(), key=lambda kv: -kv[1])}
+
+
+def host_pace_ms(fn, *args, iters: int = 10, **kwargs) -> tuple:
+    """(host enqueue, wall) ms a call of ``fn`` over ``iters`` back-to-back
+    calls, the card synchronised before and once after: equal when the
+    host paces the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args, **kwargs)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3 / iters, (t2 - t0) * 1e3 / iters
 
 
 def device_kernel_ms(fn, *args, iters: int = 10, **kwargs) -> float:
