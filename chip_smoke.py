@@ -6,8 +6,10 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
 
 1. build the port's kernels from its csrc/ sources and the kernel-bundle
    sources of phases 10-11 (one nvcc per source, all started together),
-   and print ptxas's registers, shared memory and stack of each
-   rasterizer kernel;
+   print ptxas's registers, shared memory and stack of each rasterizer
+   and segment-sum kernel, and check that K3 and K5's two kernels, built
+   again from the same source as K9's v6_full and K10's s2_gather
+   (csrc/variants.cu), get the same resources there;
 2. hold each forward kernel against its plain torch version on the card,
    on a mid scene (65,536 gaussians, 512x512): K1 and K2 bit for bit, K3
    within 3e-5 (the card's exp and FMA contraction differ from torch's);
@@ -86,28 +88,32 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     x + 1 on the live prefix and leave the tail untouched, at 3 and 8 of 8
     blocks of 1024 f32 and at 1,000 and 8,160 of 8,160 blocks of 256 f32,
     each form timed at the latter;
-14. K10, the segment-sum levels (tools/bench_segsum.py) on the TPU tool's
-    synthetic stream (3,955,712 slots, 1M gaussians) and on phase 8's
-    backward stream, timed beside segment_reduce. K10 keeps K5's old
-    design (a warp per row): s1_search, s2_gather and its 128- and
-    512-thread forms bit for bit against each other, s2_gather within
-    1e-5 of K5, every level and K5 within 1e-5 of their plain versions;
-    then K5, s2_gather and segment_reduce timed in turns on the bench-step
-    stream;
-15. K9, the rasterizer levels (tools/bench_kernel_variants.py) on phase 4's
-    stream, timed: v5_full (K3's first design, no pixel-box cull) bit for
-    bit against K3, every other level within 1e-5 of each tile's largest
-    value of its plain version; then, in both modes on the mid stream and
-    the hard tiles, v5_full bit for bit against K3 and K3 within 3e-5 of
-    its plain version;
+14. K10, the segment-sum levels (tools/bench_segsum.py: K5 stripped level
+    by level, compiled from K5's own source) on the TPU tool's synthetic
+    stream (3,955,712 slots, 1M gaussians) and on phase 8's backward
+    stream, each in device ms with its step from the level before, beside
+    K5's first design and segment_reduce: s0_prep's output, staging copy
+    and row map bit for bit its plain version; s1_scan, s2_gather and
+    s2_nostage within 1e-5 of their plain versions and bit for bit K5,
+    also on the seven hard streams; K5's first design within 1e-5 of K5;
+    then K5, s2_gather, K5's first design and segment_reduce in turns on
+    the bench-step stream (device ms);
+15. K9, the rasterizer levels (tools/bench_kernel_variants.py: K3 stripped
+    level by level, compiled from K3's own source) on phase 4's stream,
+    each in device ms with its step from the level before, beside K3's
+    first design: v0_stage's boxes within one pixel of the plain mirror's;
+    v6_full bit for bit K3; every other level within 1e-5 of each tile's
+    largest value of its plain version, culled by the card's boxes; then,
+    in both modes on the mid stream and the hard tiles, v6_full and K3's
+    first design bit for bit K3 and K3 within 3e-5 of its plain version;
 16. the port bench (wgpu_3dgs_core_tpu_torch/bench.py) in-process, its
     headline step and --full, each printing its JSON line, no overflow;
 17. bench-shape gradient parity (tools/grad_parity.py: 100,000 gaussians,
     1920x1080, 256x256 crop) within 1e-4 normalized;
 18. the ELLIPSE repair: the bench scene in ELLIPSE mode at the capacities
     measure_capacities gives that mode at headroom 1.0, no overflow;
-19. the rasterizer's redesign on the bench stream, in turns (median of 3
-    medians of 10 samples): K3 against its first design (v5_full), K4
+19. the rasterizer's redesign on the bench stream, in turns (device ms,
+    median of 3): K3 against its first design and K9's v6_full, K4
     against its first design, and K4 on its longest tile alone (the
     tail); the (warp, fragment) pairs the cull keeps and skips and the
     blending warp events.
@@ -175,6 +181,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -320,10 +327,8 @@ SIGMA_TOL = 1e-6
 BUNDLE_N = 66_773  # phase 10's items: not a multiple of any block size
 BUNDLE_FEW = 1_000  # phase 10's map_add below one tile (4,096 items)
 MAP_ADD_N = 1 << 24  # phase 11's map_add beside torch.add
-# Back-to-back calls per sample of the host's enqueue (phase 11), of the
-# plain versions of K7, K8 and K11, and of phase 14's K5 beside its old
-# design and segment_reduce by CUDA events (K5's wrapper allocates its
-# scratch before launching).
+# Back-to-back calls per sample of the host's enqueue (phase 11) and of
+# the plain versions of K7, K8 and K11 by CUDA events.
 REPS = 20
 # Phase 11's model transform (tests/test_torch_ops.py's).
 MODEL = ModelTransform(pos=(0.3, -0.2, 0.5), rot=(0.1, 0.2, 0.3, 0.927),
@@ -588,6 +593,25 @@ def ptxas_kernels(log: str, keys) -> list:
     return [(n, " / ".join(lines)) for n, lines in out]
 
 
+def unit_and_kernel(mangled: str) -> tuple:
+    """(source file, kernel) of a mangled kernel name in an anonymous
+    namespace: ``_ZN<len>_GLOBAL__N__<hash>_<n>_<file>_cu_<hash><rest>``,
+    the rest naming the kernel and its template arguments, which two
+    sources compiling the same template share."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if m is None or "_GLOBAL__N_" not in mangled:
+        return "", mangled
+    ns = mangled[m.end():m.end() + int(m.group(1))]
+    unit = re.search(r"_\d+_(\w+?)_cu_", ns)
+    return (unit.group(1) if unit else ns), mangled[m.end() + len(ns):]
+
+
+# The production kernels that K9 and K10 compile again from the same
+# source (csrc/rasterize_fwd.cuh, csrc/segsum.cuh): their full levels.
+SHARED_KERNELS = ("rasterize_fwd_kernelILi6E", "segment_sums_prep_kernel",
+                  "segment_sums_kernelILi2E")
+
+
 def phase_build(bundle_sources):
     """The kernel library, the bundle sources and K11's relocatable
     library, every nvcc started together (one thread each)."""
@@ -598,7 +622,18 @@ def phase_build(bundle_sources):
         info, infos, pinfo = lib.result(), bundles.result(), probe.result()
     cuda.library()
     regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
-    raster = ptxas_kernels(info.log, ("rasterize_", "raster_level_kernelILi5"))
+    raster = ptxas_kernels(info.log, ("rasterize_", "segment_sums"))
+    by_unit: dict = {}
+    for name, res in raster:
+        unit, kernel = unit_and_kernel(name)
+        by_unit.setdefault(kernel, {})[unit] = res
+    shared = []
+    for key in SHARED_KERNELS:
+        (kernel, units), = [(k, u) for k, u in by_unit.items() if key in k]
+        if len(units) != 2 or len(set(units.values())) != 1:
+            fail(f"{key}: production and variants builds differ in ptxas's "
+                 f"resources: {units}")
+        shared.append(f"{key} {next(iter(units.values()))}")
     bregs = sorted({int(ln.split("Used ")[1].split(" registers")[0])
                     for b in infos for ln in b.log.splitlines()
                     if "Used " in ln and "registers" in ln})
@@ -608,8 +643,11 @@ def phase_build(bundle_sources):
           f"{max(b.seconds for b in infos):.1f} s (registers {bregs}); "
           f"K11 relocatable (-rdc, cudadevrt) in {pinfo.seconds:.1f} s",
           flush=True)
-    print("phase 1 rasterizer kernels (ptxas): "
+    print("phase 1 rasterizer and segment-sum kernels (ptxas): "
           + "; ".join(f"{name}: {info}" for name, info in raster), flush=True)
+    print("phase 1 K3 and K5 built twice from one source (rasterize.cu and "
+          "segreduce.cu; variants.cu, K9's v6_full and K10's s2_gather), "
+          "the same ptxas resources: " + "; ".join(shared), flush=True)
 
 
 def mid_scene(device):
@@ -1656,15 +1694,54 @@ def phase_probe(device):
             (dev_ms, plain_ms, None, call_ms), probe_bound)
 
 
+def level_table(levels: dict) -> str:
+    """A tool's level table: each level's device ms and its step from the
+    level before."""
+    return ", ".join(
+        f"{k} {v['ms']:.4f} ms"
+        + ("" if v["step_ms"] is None else f" ({v['step_ms']:+.4f})")
+        for k, v in levels.items())
+
+
+def check_prep(name, operand, gid_col, n, got, scratch):
+    """s0_prep against its plain version, bit for bit: the zeroed output,
+    the staging copy operand.T and each live gid's first row in row_of
+    (the other entries as they were, compared with a plain prep over a
+    copy of them)."""
+    grad_t, row_of = scratch
+    if got.any():
+        fail(f"K10 s0_prep on the {name} stream left a nonzero output")
+    if not equal_bits(grad_t, operand.T.contiguous()):
+        fail(f"K10 s0_prep's staging copy on the {name} stream is not "
+             f"grad.T")
+    want = row_of.clone()
+    va.prep_plain(operand, gid_col, n, None, want)
+    if not torch.equal(row_of, want):
+        fail(f"K10 s0_prep's row map on the {name} stream differs from its "
+             f"plain version")
+
+
+def k10_full_levels(name, st, k5):
+    """s1_scan, s2_gather and s2_nostage on the stream ``st`` bit for bit
+    K5's output ``k5``."""
+    keys, perm, grad, gid_col, n = st
+    for level in ("s1_scan", "s2_gather", "s2_nostage"):
+        got = va.segment_sums_level(level, keys, perm,
+                                    va.level_operand(level, grad, perm),
+                                    gid_col, n)
+        if not equal_bits(got, k5):
+            fail(f"K10 {level} on the {name} stream differs from K5")
+
+
 def phase_segsum_variants(device, bi, bound5):
     """K10's levels through the tool on the TPU tool's synthetic stream and
-    on the bench step's backward stream (phase 8's). K10 keeps K5's old
-    design (a warp per row): each level is held to its plain version
-    (1e-5 of the row's largest sum), s1, s2 and the block-size levels to
-    each other bit for bit, and s2 to K5 within the same 1e-5 (K5 sums in
-    another order); K5 to its plain version on both streams. Then K5,
-    s2_gather and segment_reduce timed in turns on the bench-step
-    stream."""
+    on the bench step's backward stream (phase 8's), in device ms with the
+    step from the level before. Every level is held to its plain version
+    (s0_prep bit for bit, the others within K5_TOL of the row's largest
+    sum) and s1_scan, s2_gather (K5 compiled again) and s2_nostage to K5
+    bit for bit, there and on the seven hard streams; K5's first design
+    within K5_TOL of K5. Then K5, s2_gather, K5's first design and
+    segment_reduce in turns on the bench-step stream (device ms)."""
     streams = (("synthetic", k10.synthetic_stream(*SEGSUM_SYNTHETIC,
                                                   device=device)),
                ("bench step", bi["k5"]))
@@ -1675,14 +1752,20 @@ def phase_segsum_variants(device, bi, bound5):
     launches = launch_counts()["segment_sum_variants"]
     if launches < 1:
         fail("K10 did not run on the variant bench's path")
-    err = k5_norm = k5_plain = 0.0
+    err = first_err = 0.0
     for name, st in streams:
         keys, perm, grad, gid_col, n = st
-        old = {}
+        k5 = sr.segment_sums_sorted(*st)
         for level in va.SEGSUM_LEVELS:
             operand = va.level_operand(level, grad, perm)
+            scratch = (torch.empty((keys.shape[0], sr.GRAD_ROWS),
+                                   device=device),
+                       torch.empty(n, dtype=torch.int32, device=device))
             got = va.segment_sums_level(level, keys, perm, operand, gid_col,
-                                        n)
+                                        n, scratch=scratch)
+            if level == "s0_prep":
+                check_prep(name, operand, gid_col, n, got, scratch)
+                continue
             want = va.segment_sums_level_plain(level, keys, perm, operand,
                                                gid_col, n)
             err = max(err, abs_err(got, want))
@@ -1690,56 +1773,44 @@ def phase_segsum_variants(device, bi, bound5):
             if not norm <= K5_TOL:
                 fail(f"K10 {level} on the {name} stream differs from its "
                      f"plain version by {norm}")
-            if level != "s0_stream":
-                old[level] = got
-        for level, got in old.items():
-            if not equal_bits(got, old["s2_gather"]):
-                fail(f"K10 {level} on the {name} stream differs from "
-                     f"s2_gather")
-        k5 = sr.segment_sums_sorted(*st)
-        norm = normalized_err(k5, sr.segment_sums_sorted_plain(*st))
-        if not norm <= K5_TOL:
-            fail(f"K5 on the {name} stream differs from its plain version "
-                 f"by {norm}")
-        k5_plain = max(k5_plain, norm)
-        norm = normalized_err(old["s2_gather"], k5)
-        if not norm <= K5_TOL:
-            fail(f"K10 s2_gather on the {name} stream differs from K5 by "
-                 f"{norm}")
-        k5_norm = max(k5_norm, norm)
+        k10_full_levels(name, st, k5)
+        first_err = max(first_err, normalized_err(
+            va.segment_sums_first(*st), k5))
+        if not first_err <= K5_TOL:
+            fail(f"K5's first design on the {name} stream differs from K5 "
+                 f"by {first_err}")
+    for name, st in k10.hard_streams(device=device).items():
+        k10_full_levels(name, st, sr.segment_sums_sorted(*st))
     plain_ms = cuda_ms(
         lambda: va.segment_sums_level_plain("s2_gather", *bi["k5"]))
     for name, res in results.items():
         print(f"phase 14 K10 segment-sum levels ({name} stream, "
-              f"{res['f']} slots, {res['rows']} rows): "
-              + ", ".join(f"{k} {v['ms']:.4f} ms {v['us_per_row']:.5f} "
-                          f"us/row" for k, v in res["levels"].items())
-              + f"; segment_reduce {res['segment_reduce_ms']:.4f} ms",
-              flush=True)
-    print(f"phase 14 K10 checks: every level within {K5_TOL} of its plain "
-          f"version (max abs err {err:.3g}), s1_search, s2_gather, "
-          f"prod_b128, prod_b512 bit-identical to each other and s2_gather "
-          f"within {k5_norm:.3g} of K5 on both streams, K5 within "
-          f"{k5_plain:.3g} of its plain version; {launches} launches; "
-          f"bench-step s2_gather plain {plain_ms:.3f} ms", flush=True)
+              f"{res['f']} slots, {res['rows']} rows; device ms, step from "
+              f"the level before): {level_table(res['levels'])}; K5's first "
+              f"design {res['first_design_ms']:.4f} ms; segment_reduce "
+              f"{res['segment_reduce_ms']:.4f} ms", flush=True)
+    print(f"phase 14 K10 checks: s0_prep's output, staging copy and row map "
+          f"bit for bit its plain version; s1_scan, s2_gather, s2_nostage "
+          f"within {K5_TOL} of their plain versions (max abs err "
+          f"{err:.3g}) and bit for bit K5 on both streams and the "
+          f"{len(k10.HARD_STREAMS)} hard streams; K5's first design within "
+          f"{first_err:.3g} of K5; {launches} launches; bench-step "
+          f"s2_gather plain {plain_ms:.3f} ms", flush=True)
     k5, lib = bi["k5"], k10.segment_reduce_call(*bi["k5"])
     calls = {"K5": lambda: sr.segment_sums_sorted(*k5),
-             "s2_gather": lambda: va.segment_sums_level("s2_gather", *k5),
+             "K10 s2_gather": lambda: va.segment_sums_level("s2_gather", *k5),
+             "K5 first": lambda: va.segment_sums_first(*k5),
              "segment_reduce": lib}
-    turns: dict[str, list] = {name: [] for name in calls}
-    for _ in range(3):
-        for name, fn in calls.items():
-            turns[name].append(cuda_ms(fn, reps=REPS))
-    t = {name: statistics.median(v) for name, v in turns.items()}
-    print(f"phase 14 bench-step stream, in turns (median of 3 medians of "
-          f"10 samples of {REPS} back-to-back calls): K5 {t['K5']:.4f} ms, "
-          f"s2_gather (K5's old design) "
-          f"{t['s2_gather']:.4f} ms, segment_reduce {t['segment_reduce']:.4f}"
-          f" ms; K5 / s2_gather {t['K5'] / t['s2_gather']:.3f}, K5 / bound "
-          f"({bound5:.4f} ms) {t['K5'] / bound5:.2f}, K5 / segment_reduce "
+    t = in_turns(calls)
+    print(f"phase 14 bench-step stream, in turns (device ms, median of 3): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + f"; K5 / s2_gather {t['K5'] / t['K10 s2_gather']:.4f}, K5 / "
+          f"first {t['K5'] / t['K5 first']:.3f}, K5 / bound ({bound5:.4f} "
+          f"ms) {t['K5'] / bound5:.2f}, K5 / segment_reduce "
           f"{t['K5'] / t['segment_reduce']:.2f}", flush=True)
-    s2 = (device_ms(calls["s2_gather"]), plain_ms,
-          device_ms(calls["segment_reduce"]), cuda_ms(calls["s2_gather"]))
+    s2 = (device_ms(calls["K10 s2_gather"]), plain_ms,
+          device_ms(calls["segment_reduce"]),
+          cuda_ms(calls["K10 s2_gather"]))
     print(f"phase 14 bench-step stream: s2_gather device {s2[0]:.4f} ms, one "
           f"call {s2[3]:.4f} ms; segment_reduce device {s2[2]:.4f} ms",
           flush=True)
@@ -1747,68 +1818,86 @@ def phase_segsum_variants(device, bi, bound5):
 
 
 def phase_raster_variants(device, inp, mid):
-    """K9's levels through the tool on phase 4's bench stream, then
-    v5_full (K3's first design) held to K3 bit for bit and every other
-    level to its plain version within K9_TOL of each tile's largest value;
-    then, in both modes on the mid stream and the hard tiles, K3 bit for
-    bit equal to v5_full and within K3_TOL of its plain version."""
+    """K9's levels through the tool on phase 4's bench stream, in device
+    ms with the step from the level before; the boxes v0_stage wrote
+    against the plain mirror (each bound within one pixel, the count that
+    differ printed); v6_full (K3 compiled again) held to K3 bit for bit
+    and every other level to its plain version, culled by the card's
+    boxes, within K9_TOL of each tile's largest value; then, in both
+    modes on the mid stream and the hard tiles, v6_full and K3's first
+    design bit for bit K3 and K3 within K3_TOL of its plain version."""
     k3_args = inp["k3"]
+    frags, start, draw_len, _, cutoff_sq, mode = k3_args
     torch.cuda.synchronize(device)
     reset_launch_counts()
-    result = k9.run(*k3_args[:4], cutoff_sq=k3_args[4], mode=k3_args[5])
+    result = k9.run(*k3_args[:4], cutoff_sq=cutoff_sq, mode=mode)
     torch.cuda.synchronize(device)
     launches = launch_counts()["rasterize_variants"]
     if launches < 1:
         fail("K9 did not run on the variant bench's path")
     k3 = ra.rasterize_tiles_fwd(*k3_args)
+    boxes = torch.empty(frags.shape[1], dtype=torch.int32, device=device)
+    va.rasterize_level("v0_stage", *k3_args, boxes=boxes)
+    staged = va.staged_slots(start, draw_len)
+    box_diff = (va.box_rows(boxes[staged])
+                - ra.frag_pixel_box_plain(frags[:, staged], cutoff_sq, mode)
+                ).abs()
+    if int(box_diff.max()) > 1:
+        fail(f"v0_stage's boxes differ from the plain mirror's by "
+             f"{int(box_diff.max())} pixels")
+    n_box_diff = int(box_diff.amax(dim=0).gt(0).sum())
     errs, norms = {}, {}
     for level in va.RASTER_LEVELS:
         got = va.rasterize_level(level, *k3_args)
         if not torch.isfinite(got).all():
             fail(f"K9 {level} output is not finite")
-        want = va.rasterize_level_plain(level, *k3_args)
+        want = va.rasterize_level_plain(level, *k3_args, cull_boxes=boxes)
         errs[level] = abs_err(got, want)
         norms[level] = tile_err(got, want)
-        if level == "v5_full":
+        if level == "v6_full":
             if not equal_bits(got, k3):
-                fail("K9 v5_full differs from K3")
+                fail("K9 v6_full differs from K3")
         elif not norms[level] <= K9_TOL:
             fail(f"K9 {level} differs from its plain version by "
                  f"{norms[level]} of the tile's largest value")
-    v4_k3 = equal_bits(va.rasterize_level("v4_color", *k3_args), k3)
+    v5_k3 = equal_bits(va.rasterize_level("v5_color", *k3_args), k3)
     cases = [(f"mid/{mode}", with_mode(mid[3]["k3"], mode))
              for mode in (0, 1)] + hard_tile_cases(device)
     k3_plain = 0.0
     for name, args in cases:
         k3 = ra.rasterize_tiles_fwd(*args)
-        if not equal_bits(va.rasterize_level("v5_full", *args), k3):
-            fail(f"K9 v5_full on {name} differs from K3")
+        if not equal_bits(va.rasterize_level("v6_full", *args), k3):
+            fail(f"K9 v6_full on {name} differs from K3")
+        if not equal_bits(va.rasterize_fwd_first(*args), k3):
+            fail(f"K3's first design on {name} differs from K3")
         err = abs_err(k3, ra.rasterize_tiles_fwd_plain(*args))
         if not err <= K3_TOL:
             fail(f"K3 on {name} differs from its plain version by {err}")
         k3_plain = max(k3_plain, err)
-    plain_ms = cuda_ms(lambda: va.rasterize_level_plain("v5_full", *k3_args),
+    plain_ms = cuda_ms(lambda: va.rasterize_level_plain("v6_full", *k3_args),
                        iters=3)
-    v5 = (device_ms(lambda: va.rasterize_level("v5_full", *k3_args)),
+    v6 = (device_ms(lambda: va.rasterize_level("v6_full", *k3_args)),
           plain_ms, None,
-          cuda_ms(lambda: va.rasterize_level("v5_full", *k3_args)))
+          cuda_ms(lambda: va.rasterize_level("v6_full", *k3_args)))
     n_t = result["tiles"]
     print(f"phase 15 K9 rasterizer levels (bench stream, {n_t} tiles, "
-          f"{result['fragments']} fragments): "
-          + ", ".join(f"{k} {v['ms']:.4f} ms {v['us_per_tile']:.4f} us/tile"
-                      for k, v in result["levels"].items())
-          + f"; v5_full bit-identical to K3 (also in both "
-          f"modes on the mid stream and the {len(k9.HARD_TILES)} hard tile "
-          f"sets, where K3 is within {k3_plain:.3g} of its plain version, "
-          f"tol {K3_TOL}), v4_color bit-identical to K3: "
-          f"{v4_k3}; normalized err vs plain "
+          f"{result['fragments']} fragments; device ms, step from the level "
+          f"before): {level_table(result['levels'])}; K3's first design "
+          f"{result['first_design_ms']:.4f} ms", flush=True)
+    print(f"phase 15 K9 checks: v0_stage's boxes within one pixel of the "
+          f"plain mirror's ({n_box_diff} of {staged.numel()} differ); "
+          f"v6_full bit-identical to K3 (also in both modes on the mid "
+          f"stream and the {len(k9.HARD_TILES)} hard tile sets, with K3's "
+          f"first design, where K3 is within {k3_plain:.3g} of its plain "
+          f"version, tol {K3_TOL}), v5_color bit-identical to K3: {v5_k3}; "
+          f"normalized err vs plain (culled by the card's boxes) "
           + ", ".join(f"{k} {v:.3g}" for k, v in norms.items())
-          + f" (tol {K9_TOL}; v5 held to K3; max abs err "
+          + f" (tol {K9_TOL}; v6 held to K3; max abs err "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-          + f"); {launches} launches; v5_full device {v5[0]:.4f} ms, one "
-          f"call {v5[3]:.4f} ms, plain {plain_ms:.3f} ms", flush=True)
+          + f"); {launches} launches; v6_full device {v6[0]:.4f} ms, one "
+          f"call {v6[3]:.4f} ms, plain {plain_ms:.3f} ms", flush=True)
     # The kernels line holds the full level: its time, bound and error.
-    return launches, errs["v5_full"], v5
+    return launches, errs["v6_full"], v6
 
 
 def phase_port_bench(device):
@@ -1873,35 +1962,32 @@ def longest_tile(k4):
 
 
 def phase_raster_redesign(device, inp, bi, counts, bounds):
-    """K3 and K4 against their first designs (K9's v5_full and
-    rasterize_bwd_first), in turns on the bench stream (median of 3
-    medians of 10 samples, as in phase 14), with K4 on its longest tile
-    alone against the whole kernel in the same turns; and the cull's
-    counts on the bench stream."""
+    """K3 and K4 against their first designs (rasterize_fwd_first and
+    rasterize_bwd_first) and K3 against K9's v6_full (K3 compiled again),
+    in turns on the bench stream (device ms, median of 3, as in phase 14),
+    with K4 on its longest tile alone against the whole kernel in the same
+    turns; and the cull's counts on the bench stream."""
     k3, k4 = inp["k3"], bi["k4"]
     tile_args, tile = longest_tile(k4)
     calls = {
         "K3": lambda: ra.rasterize_tiles_fwd(*k3),
-        "K3 v5_full": lambda: va.rasterize_level("v5_full", *k3),
+        "K9 v6_full": lambda: va.rasterize_level("v6_full", *k3),
+        "K3 first": lambda: va.rasterize_fwd_first(*k3),
         "K4": lambda: ra.rasterize_tiles_bwd(*k4),
         "K4 first": lambda: va.rasterize_bwd_first(*k4),
         "K4 longest tile": lambda: ra.rasterize_tiles_bwd(*tile_args),
     }
     torch.cuda.synchronize(device)
-    turns: dict[str, list] = {name: [] for name in calls}
-    for _ in range(3):
-        for name, fn in calls.items():
-            turns[name].append(cuda_ms(fn))
-    t = {name: statistics.median(v) for name, v in turns.items()}
+    t = in_turns(calls)
     kept, skipped = k9.cull_counts(*k3[:3])
     b3, b4 = bounds["rasterize_fwd"][0], bounds["rasterize_bwd"][0]
     print(f"phase 19 rasterizer redesign, in turns on the bench stream "
-          f"(median of 3 medians of 10 samples), ms: "
+          f"(device ms, median of 3): "
           + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-          + f"; K3 / v5_full {t['K3'] / t['K3 v5_full']:.3f}, K3 / bound "
-          f"({b3:.4f} ms) {t['K3'] / b3:.2f}; K4 / first "
-          f"{t['K4'] / t['K4 first']:.3f}, K4 / bound ({b4:.4f} ms) "
-          f"{t['K4'] / b4:.2f}", flush=True)
+          + f"; K3 / v6_full {t['K3'] / t['K9 v6_full']:.4f}, K3 / first "
+          f"{t['K3'] / t['K3 first']:.3f}, K3 / bound ({b3:.4f} ms) "
+          f"{t['K3'] / b3:.2f}; K4 / first {t['K4'] / t['K4 first']:.3f}, "
+          f"K4 / bound ({b4:.4f} ms) {t['K4'] / b4:.2f}", flush=True)
     print(f"phase 19 cull on the bench stream ({counts['drawn']} drawn "
           f"fragments, {8 * counts['drawn']} (warp, fragment) pairs): kept "
           f"{kept}, skipped {skipped}, blending warp events "

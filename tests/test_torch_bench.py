@@ -5,9 +5,11 @@ numpy draws bit for bit, cov6 within 1e-6); its step at a tiny size on
 the CPU (2,000 gaussians, 160x96) against ``jax.value_and_grad`` of the
 JAX ``render`` loss (JAX Pallas kernels in interpret mode): the loss
 within 1e-5 relative, the gradients within 1e-4 normalized; K9's full
-level on that step's stream bit for bit against the port's plain K3 and,
-composited into the image, within 3e-5 of the JAX forward; and its
-command line, which prints bench.py's JSON keys.
+level (K3 itself) on that step's stream bit for bit against the port's
+plain K3 and, composited into the image, within 3e-5 of the JAX forward;
+the first designs of K3 and K5 (their plain versions on the CPU) equal
+to K3's and K5's; and its command line, which prints bench.py's JSON
+keys.
 """
 
 import json
@@ -27,8 +29,14 @@ from wgpu_3dgs_core_tpu_torch.ops.rasterize import (
     tiles_to_image,
 )
 from wgpu_3dgs_core_tpu_torch.render.renderer import measure_capacities
-from wgpu_3dgs_core_tpu_torch.ops.variants import rasterize_level
+from wgpu_3dgs_core_tpu_torch.ops.segreduce import segment_sums_sorted_plain
+from wgpu_3dgs_core_tpu_torch.ops.variants import (
+    rasterize_fwd_first,
+    rasterize_level,
+    segment_sums_first,
+)
 from wgpu_3dgs_core_tpu_torch.tools.bench_kernel_variants import bench_stream
+from wgpu_3dgs_core_tpu_torch.tools.bench_segsum import hard_streams
 
 from .torch_parity import IMAGE_ATOL, nn, one_torch_thread  # noqa: F401
 
@@ -97,15 +105,20 @@ def test_bench_step_matches_jax(step_pair):
         assert err <= GRAD_TOL, f"{name}: normalized error {err:.3g}"
 
 
-def test_k9_v5_full_on_the_bench_stream(step_pair):
+def _bench_k3_args(step_pair):
+    scene, cam, caps, *_ = step_pair
+    with torch.no_grad():
+        return bench_stream(scene, cam, *caps, pad_slack=PAD_SLACK,
+                            sh_deg=SH_DEG)
+
+
+def test_k9_v6_full_on_the_bench_stream(step_pair):
     """K9's full level (its plain version on the CPU) is the port's plain
     K3 bit for bit, and its tiles, composited as render does, are within
     3e-5 of the JAX render's image (its Pallas forward kernel)."""
-    scene, cam, caps, _, (_, _, jimage, _) = step_pair
-    with torch.no_grad():
-        frags, start, draw_len, bg = bench_stream(
-            scene, cam, *caps, pad_slack=PAD_SLACK, sh_deg=SH_DEG)
-    tiles = rasterize_level("v5_full", frags, start, draw_len, bg)
+    jimage = step_pair[4][2]
+    frags, start, draw_len, bg = _bench_k3_args(step_pair)
+    tiles = rasterize_level("v6_full", frags, start, draw_len, bg)
     want = rasterize_tiles_fwd_plain(frags, start, draw_len, bg)
     assert torch.equal(tiles.view(torch.int32), want.view(torch.int32))
     written = (draw_len > 0)[:, None, None]
@@ -114,6 +127,19 @@ def test_k9_v5_full_on_the_bench_stream(step_pair):
     tx, ty = -(-W // 16), -(-H // 16)
     image = tiles_to_image(tiles, tx, ty, W, H)[..., 0:3]
     np.testing.assert_allclose(nn(image), jimage, atol=IMAGE_ATOL, rtol=0)
+
+
+def test_first_designs_plain_equal_k3_and_k5_plain(step_pair):
+    """K3's first design on the bench step's stream and K5's on the
+    streams K5 finds hard, through their plain versions on the CPU: K3's
+    and K5's plain versions, bit for bit."""
+    k3 = _bench_k3_args(step_pair)
+    assert torch.equal(rasterize_fwd_first(*k3).view(torch.int32),
+                       rasterize_tiles_fwd_plain(*k3).view(torch.int32))
+    for name, st in hard_streams().items():
+        assert torch.equal(segment_sums_first(*st).view(torch.int32),
+                           segment_sums_sorted_plain(*st).view(torch.int32)
+                           ), name
 
 
 def test_small_takes_bench_py_settings():

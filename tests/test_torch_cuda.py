@@ -4,9 +4,10 @@ versions, launch counts, and the determinism of the backward; K7
 (one-level binning) and K8 (kernel bundles on phase 10's shapes of
 chip_smoke.py, the gaussian unpack of every layout) against their plain
 versions and their first designs; the measurement path's K9
-(rasterizer levels: v5_full against K3), K10 (segment-sum levels:
-s2_gather against K5) and K11 (every live-bound launch form); K5 on the
-streams its design finds hard.
+(rasterizer levels: v6_full against K3), K10 (segment-sum levels:
+s1_scan, s2_gather and s2_nostage against K5, and K5's first design) and
+K11 (every live-bound launch form); K5 on the streams its design finds
+hard.
 
 These need a CUDA card and nvcc, and skip without one. On a machine with
 a card: ``python -m pytest -m cuda tests/test_torch_cuda.py``, with
@@ -209,7 +210,9 @@ def test_render_on_card_matches_cpu_and_counts_launches(cuda):
                                  "kernel_bundle": 0, "rasterize_variants": 0,
                                  "segment_sum_variants": 0,
                                  "probe_dyngrid": 0,
+                                 "rasterize_fwd_first": 0,
                                  "rasterize_bwd_first": 0,
+                                 "segment_sums_first": 0,
                                  "expand_fragments_bbox_first": 0,
                                  "kernel_bundle_first": 0}
     ref = T.render(*(a.cpu() for a in args), CAM, background=BG)
@@ -431,9 +434,10 @@ def _bits(t):
 
 
 @pytest.mark.parametrize("mode", [0, 1])
-def test_k9_v5_full_equals_k3(cuda, mode):
+def test_k9_v6_full_equals_k3(cuda, mode):
     """K9's full level is K3 bit for bit; every other level is within 1e-5
-    of each tile's largest value of its plain version."""
+    of each tile's largest value of its plain version, culled by the
+    boxes v0_stage wrote, which are the plain mirror's to one pixel."""
     spl, attr, tx, ty = _binned(cuda)
     stream, attrs_sorted, _ = bin_splats_attrs(
         spl.xy, spl.extent, spl.depth, spl.mask, attr, tx, ty, 8192,
@@ -443,38 +447,47 @@ def test_k9_v5_full_equals_k3(cuda, mode):
     frags = tile_local_stream(attrs_sorted, stream.tile_id, tx)
     args = (frags, stream.tile_start, sched.draw_len, BG, 9.0, mode)
     k3 = TR.rasterize_tiles_fwd(*args)
+    boxes = torch.empty(frags.shape[1], dtype=torch.int32, device=cuda)
+    KV.rasterize_level("v0_stage", *args, boxes=boxes)
+    staged = KV.staged_slots(stream.tile_start, sched.draw_len)
+    mirror = TR.frag_pixel_box_plain(frags[:, staged], 9.0, mode)
+    assert int((KV.box_rows(boxes[staged]) - mirror).abs().max()) <= 1
     for level in KV.RASTER_LEVELS:
         got = KV.rasterize_level(level, *args)
-        if level == "v5_full":
+        if level == "v6_full":
             assert torch.equal(_bits(got), _bits(k3))
             continue
-        want = KV.rasterize_level_plain(level, *args)
+        want = KV.rasterize_level_plain(level, *args, cull_boxes=boxes)
         err = (got - want).abs().amax(dim=(1, 2))
         scale = want.abs().amax(dim=(1, 2))
         assert float(torch.where(scale > 0, err / scale, err).max()) <= 1e-5
 
 
 def test_k10_s2_gather_equals_k5(cuda):
-    """K10 keeps K5's old design (a warp per row): its s1_search,
-    s2_gather and the block-size levels equal each other bit for bit on
-    the backward's own stream, every level is within 1e-5 of its plain
-    version, and s2_gather within 1e-5 of K5 (which sums in another
-    order)."""
+    """K10's levels on the backward's own stream: s0_prep writes the
+    gradients slot-major and zeros, s1_scan, s2_gather and s2_nostage are
+    K5 bit for bit, every level is within 1e-5 of its plain version, and
+    K5's first design (a warp per row, summing in another order) within
+    1e-5 of K5."""
     k4, (keys, perm, gid_col, n) = _backward_inputs(cuda, 0)
     dfrag = TR.rasterize_tiles_bwd(*k4)
     k5 = TS.segment_sums_sorted(keys, perm, dfrag, gid_col, n)
-    old = {}
     for level in KV.SEGSUM_LEVELS:
         grad = KV.level_operand(level, dfrag, perm)
-        got = KV.segment_sums_level(level, keys, perm, grad, gid_col, n)
+        grad_t = torch.empty((grad.shape[1], 9), device=cuda)
+        row_of = torch.empty(n, dtype=torch.int32, device=cuda)
+        got = KV.segment_sums_level(level, keys, perm, grad, gid_col, n,
+                                     scratch=(grad_t, row_of))
         want = KV.segment_sums_level_plain(level, keys, perm, grad,
                                             gid_col, n)
         assert _normalized(got, want) <= 1e-5
-        if level != "s0_stream":
-            old[level] = got
-    for level, got in old.items():
-        assert torch.equal(_bits(got), _bits(old["s2_gather"])), level
-    assert _normalized(old["s2_gather"], k5) <= 1e-5
+        if level == "s0_prep":
+            assert not bool(got.any())
+            assert torch.equal(_bits(grad_t), _bits(grad.T.contiguous()))
+        else:
+            assert torch.equal(_bits(got), _bits(k5)), level
+    first = KV.segment_sums_first(keys, perm, dfrag, gid_col, n)
+    assert _normalized(first, k5) <= 1e-5
 
 
 @pytest.mark.parametrize("name", HARD_STREAMS)

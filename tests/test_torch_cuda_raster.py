@@ -4,10 +4,11 @@ K3 (``rasterize_tiles_fwd``) and K4 (``rasterize_tiles_bwd``) skip, a warp
 at a time, the fragments whose conservative pixel box misses the warp's
 pixels. On the scene of tests/test_torch_cuda.py and on the tiles the
 cull finds hard (``tools/bench_kernel_variants.py::hard_tiles``), in SPLAT
-and ELLIPSE mode: K3 equals its first design (K9's ``v5_full``, no cull)
-bit for bit; K4 is within 1e-4 (of each gradient row's largest value) of
-its plain version and of its first design; two K4 launches are
-bit-identical.
+and ELLIPSE mode: K3 equals its first design (``ops/variants.py::
+rasterize_fwd_first``, no cull) and K9's ``v6_full`` (K3 compiled again
+from its source) bit for bit; K4 is within 1e-4 (of each gradient row's
+largest value) of its plain version and of its first design; two K4
+launches are bit-identical.
 
 These need a CUDA card and nvcc, and skip without one. On a machine with
 a card: ``python -m pytest --noconftest -m cuda
@@ -71,11 +72,13 @@ def _bits(t):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_k3_equals_its_first_design(cuda, mode):
-    """K3 with the cull equals v5_full (K3 without it) bit for bit, and
-    its plain version within 3e-5."""
+    """K3 with the cull equals its first design (K3 without it) and K9's
+    v6_full bit for bit, and its plain version within 3e-5."""
     for name, k3 in _streams(cuda, mode):
         got = TR.rasterize_tiles_fwd(*k3)
-        assert torch.equal(_bits(KV.rasterize_level("v5_full", *k3)),
+        assert torch.equal(_bits(KV.rasterize_fwd_first(*k3)),
+                           _bits(got)), name
+        assert torch.equal(_bits(KV.rasterize_level("v6_full", *k3)),
                            _bits(got)), name
         err = float((got - TR.rasterize_tiles_fwd_plain(*k3)).abs().max())
         assert err <= 3e-5, (name, err)

@@ -8,8 +8,10 @@ run, no drawn slot, every slot drawn, one gaussian owning every slot, live
 rows with no drawn slot, drawn keys missing from the gid column. On the
 CPU ``segment_sums_sorted`` runs its plain version; it is held to a numpy
 float64 sum per key and to JAX ``segment_sums_sorted`` (its Pallas kernel
-in interpret mode, the gradients read in key order). The CUDA kernel runs
-on the same streams in ``tests/test_torch_cuda.py``.
+in interpret mode, the gradients read in key order). K10's levels (K5
+stripped level by level, ``ops/variants.py``) are held there to their
+float64 numpy definitions. The CUDA kernel runs on the same streams in
+``tests/test_torch_cuda.py``.
 """
 
 import functools
@@ -18,9 +20,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from wgpu_3dgs_core_tpu.ops import segreduce as JS
 from wgpu_3dgs_core_tpu_torch.ops import segreduce as TS
+from wgpu_3dgs_core_tpu_torch.ops import variants as KV
 from wgpu_3dgs_core_tpu_torch.tools.bench_segsum import (
     HARD_STREAMS,
     hard_streams,
@@ -127,3 +131,39 @@ def test_k5_plain_matches_numpy_and_jax(streams, name):
     jax_sums = _jax_sums(keys, perm, grad, gid_col, n)
     assert _normalized(jax_sums, want) <= JAX_TOL
     assert _normalized(mine, jax_sums) <= JAX_TOL
+
+
+@pytest.mark.parametrize("level", KV.SEGSUM_LEVELS)
+def test_k10_levels_plain_match_numpy(streams, level):
+    """Each K10 level by its definition, on the runs across tile ends and
+    the keys missing from the gid column: s0_prep leaves zeros in the
+    output, the gradients slot-major in grad_t and each live gid's first
+    row in row_of; s1_scan sums the key-ordered copy in key order, and
+    s2_gather and s2_nostage sum through the permutation, each within the
+    float64 sum per key."""
+    for name in ("straddling", "missing_key"):
+        stream, (keys, perm, grad, gid_col, n) = streams[name]
+        t_keys, t_perm, t_grad, t_gid = stream[:4]
+        operand = KV.level_operand(level, t_grad, t_perm)
+        f = keys.shape[0]
+        grad_t = torch.full((f, TS.GRAD_ROWS), -1.0)
+        row_of = torch.full((n,), -1, dtype=torch.int32)
+        got = nn(KV.segment_sums_level(level, t_keys, t_perm, operand, t_gid,
+                                       n, scratch=(grad_t, row_of)))
+        live = gid_col < n
+        first = np.flatnonzero(live & np.concatenate(
+            [[True], gid_col[1:] != gid_col[:-1]]))
+        want_row_of = np.full(n, -1)
+        want_row_of[gid_col[first]] = first
+        assert np.array_equal(nn(row_of), want_row_of), (name, level)
+        staged = nn(grad_t)
+        if level == "s2_nostage":
+            assert (staged == -1.0).all()  # no staging copy
+        else:
+            assert np.array_equal(staged, nn(operand).T), (name, level)
+        if level == "s0_prep":
+            assert not got.any()
+            continue
+        order = np.arange(f) if level == "s1_scan" else perm
+        want = _numpy_sums(keys, order, nn(operand), gid_col, n)
+        assert _normalized(got, want) <= PLAIN_TOL, (name, level)

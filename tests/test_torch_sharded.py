@@ -301,7 +301,8 @@ def test_two_ranks_all_to_all(reference):
     routed splats and fragments, and two bit-identical backward passes."""
     out = spawn_ranks(render_step, 2,
                       (SCENE, CAM, [dict(sh_deg=3, background=BG)], TARGET,
-                       True), backend="gloo", timeout=SPAWN_TIMEOUT)
+                       True), backend="gloo", device="cpu",
+                      timeout=SPAWN_TIMEOUT)
     items = _check_ranks(out, reference)
     assert all(it["identical"] for it in items)
     stats = [it["stats"] for it in items]
@@ -319,7 +320,7 @@ def four_ranks():
                   per_device_fragments=PER_DEVICE_FRAGMENTS)]
     cases += [dict(sh_deg=2, background=BG, **kw) for kw in KNOB_CASES]
     return spawn_ranks(render_step, 4, (SCENE, CAM, cases, TARGET),
-                       backend="gloo", timeout=SPAWN_TIMEOUT)
+                       backend="gloo", device="cpu", timeout=SPAWN_TIMEOUT)
 
 
 def test_four_ranks_all_to_all(four_ranks, reference):
@@ -438,6 +439,6 @@ def test_dryrun_multichip_and_failures_on_cpu():
     assert abs(loss - float(torch.mean(res.image ** 2))) <= 1e-6
     with pytest.raises(RuntimeError, match="unknown exchange mode"):
         spawn_ranks(render_step, 2, (SCENE, CAM, [dict(exchange="ring")]),
-                    backend="gloo", timeout=SPAWN_TIMEOUT)
+                    backend="gloo", device="cpu", timeout=SPAWN_TIMEOUT)
     with pytest.raises(ValueError, match="NCCL"):
         spawn_ranks(render_step, 2, (), backend="nccl", device="cpu")

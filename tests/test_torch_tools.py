@@ -3,11 +3,14 @@
 K11 (the live-bound launch probe), K10 (the segment-sum levels) and K9
 (the rasterizer levels) through their plain versions on the CPU: K11
 against the JAX ``tools/probe_dyngrid.py::run`` (Pallas in interpret
-mode), K10's full level against the JAX ``segment_sums_sorted``, and every
-stripped level against a numpy definition in float64; then the CUDA route
-of each wrapper, which never falls back to the plain version. K9's full
-level against the JAX forward kernel is in test_torch_bench.py, on the
-bench step's scene. The kernels run on the card in
+mode), K10's full level against the JAX ``segment_sums_sorted``, its
+scanning levels bit for bit K5's plain version on the streams K5 finds
+hard, and every K9 level against a numpy definition in float64, K3's
+warp-block cull included; then the CUDA route of each wrapper, the first
+designs' included, which never falls back to the plain version. K9's
+full level against the JAX forward kernel is in test_torch_bench.py, on
+the bench step's scene, and K10's levels against numpy in
+test_torch_segsum.py. The kernels run on the card in
 tests/test_torch_cuda.py and chip_smoke.py.
 
 tools/bench_kernel_variants.py and tools/bench_segsum.py are not imported:
@@ -36,6 +39,8 @@ from wgpu_3dgs_core_tpu_torch.render.renderer import (
 )
 from wgpu_3dgs_core_tpu_torch.ops import probe as K11
 from wgpu_3dgs_core_tpu_torch.ops import variants as KV
+from wgpu_3dgs_core_tpu_torch.ops.rasterize import frag_pixel_box_plain
+from wgpu_3dgs_core_tpu_torch.tools.bench_segsum import hard_streams
 from wgpu_3dgs_core_tpu_torch.tools.probe_dyngrid import SENTINEL
 
 from .test_segreduce import _setup
@@ -112,31 +117,19 @@ def _permuted_stream(seed=9, n=60, f=500):
     return keys, perm, grad, gid_col, n
 
 
-def test_k10_searching_levels_plain_equal_k5_plain_bit_for_bit():
-    """s1_search over the key-ordered gradients and s2_gather and the
-    block-size levels through the permutation: K5's plain version, bit for
-    bit."""
-    keys, perm, grad, gid_col, n = _permuted_stream()
-    want = TS.segment_sums_sorted_plain(keys, perm, grad, gid_col, n)
-    for level in ("s1_search", "s2_gather", "prod_b128", "prod_b512"):
-        got = KV.segment_sums_level(level, keys, perm,
-                                     KV.level_operand(level, grad, perm),
-                                     gid_col, n)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-
-
-def test_k10_s0_stream_matches_numpy():
-    """The streaming floor: row r sums slots [r * run, (r + 1) * run) of
-    the key-ordered gradients, run = f // rows (numpy, float64)."""
-    keys, perm, grad, gid_col, n = _permuted_stream(seed=4)
-    operand = KV.level_operand("s0_stream", grad, perm)
-    got = nn(KV.segment_sums_level("s0_stream", keys, perm, operand,
-                                    gid_col, n))
-    g = nn(operand).astype(np.float64)
-    rows, run = gid_col.shape[0], keys.shape[0] // gid_col.shape[0]
-    want = g[:, :rows * run].reshape(9, rows, run).sum(axis=2)
-    scale = np.abs(want).max(axis=1, keepdims=True)
-    assert (np.abs(got - want) <= LEVEL_TOL * scale).all()
+def test_k10_full_levels_plain_equal_k5_plain_bit_for_bit():
+    """s1_scan over the key-ordered gradients, s2_gather (K5) and
+    s2_nostage through the permutation: K5's plain version, bit for bit,
+    on the streams K5 finds hard and on a sorted unsorted stream."""
+    streams = dict(hard_streams(), permuted=_permuted_stream())
+    for name, (keys, perm, grad, gid_col, n) in streams.items():
+        want = TS.segment_sums_sorted_plain(keys, perm, grad, gid_col, n)
+        for level in ("s1_scan", "s2_gather", "s2_nostage"):
+            got = KV.segment_sums_level(level, keys, perm,
+                                         KV.level_operand(level, grad, perm),
+                                         gid_col, n)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (name, level)
 
 
 @pytest.fixture(scope="module")
@@ -159,33 +152,43 @@ def small_stream():
     return frags, stream.tile_start, sched.draw_len, (0.1, 0.2, 0.3)
 
 
-def _numpy_level(level, frags, start, length, bg, cutoff_sq=9.0):
-    """Level ``level`` by its definition, in float64 per tile and pixel:
-    sums of opacity (0), q (1), the kept alphas (2); the T recurrence of the
-    kept fragments while T > 1e-4 (3; black fragments), with colour (4),
-    with 1 - q/2 for exp(-q/2) (6)."""
+def _numpy_level(level, frags, start, length, bg, boxes, cutoff_sq=9.0):
+    """Level ``level`` by its definition, in float64 per tile and pixel,
+    each pixel in its warp's 8x4 block (columns 8 (c // 8) .. + 7, rows
+    4 (r // 4) .. + 3): sums of the staged opacities (0); over the
+    fragments whose box ``boxes`` [4, F] meets the pixel's block, sums of
+    opacity (1), q (2), the kept alphas (3); the T recurrence of the kept
+    fragments while T > 1e-4 (4: black fragments), with colour (5, 6),
+    with 1 - q/2 for exp(-q/2) (7)."""
     f = frags.astype(np.float64)
     p = np.arange(256)
     px, py = p % 16 + 0.5, p // 16 + 0.5
+    x0, y0 = p % 16 // 8 * 8, p // 16 // 4 * 4
     out = np.zeros((start.shape[0], 4, 256))
     for t, (s, ln) in enumerate(zip(start, length)):
         fr = f[:, s:s + ln]
+        bx = boxes[:, s:s + ln, None]
+        walked = ((bx[0] <= x0 + 7) & (bx[1] >= x0) & (bx[2] <= y0 + 3)
+                  & (bx[3] >= y0))
         dx = px[None, :] - fr[0][:, None]
         dy = py[None, :] - fr[1][:, None]
         q = (fr[2][:, None] * dx * dx + 2 * fr[3][:, None] * dx * dy
              + fr[4][:, None] * dy * dy)
-        fall = 1.0 - 0.5 * q if level == 6 else np.exp(-0.5 * q)
+        fall = 1.0 - 0.5 * q if level == 7 else np.exp(-0.5 * q)
         alpha = np.minimum(fr[8][:, None] * fall, 0.99)
         keep = (q <= cutoff_sq) & (alpha >= 1.0 / 255.0)
-        if level <= 2:
-            val = (np.broadcast_to(fr[8][:, None], q.shape), q,
-                   np.where(keep, alpha, 0.0))[level]
-            out[t, 0] = val.sum(axis=0)
+        op = np.broadcast_to(fr[8][:, None], q.shape)
+        if level == 0:
+            out[t, 0] = op.sum(axis=0)
+            continue
+        if level <= 3:
+            val = (op, q, np.where(keep, alpha, 0.0))[level - 1]
+            out[t, 0] = np.where(walked, val, 0.0).sum(axis=0)
             continue
         tr, rgb = np.ones(256), np.zeros((3, 256))
         for i in range(ln):
             blend = keep[i] & (tr > 1e-4)
-            if level != 3:
+            if level != 4:
                 rgb += np.where(blend, alpha[i] * tr, 0.0) * fr[5:8, i, None]
             tr = np.where(blend, tr * (1.0 - alpha[i]), tr)
         out[t, 0:3] = rgb + tr * np.asarray(bg)[:, None]
@@ -193,26 +196,52 @@ def _numpy_level(level, frags, start, length, bg, cutoff_sq=9.0):
     return out
 
 
-def test_k9_levels_plain_match_numpy(small_stream):
-    """Every level but the full one (v5_full is K3: test_torch_bench.py)
-    within 1e-5 of each tile's largest value of its definition."""
+@pytest.mark.parametrize("name", KV.RASTER_LEVELS)
+def test_k9_levels_plain_match_numpy(small_stream, name):
+    """Each level within 1e-5 of each tile's largest value of its
+    definition, culled by the plain boxes. v0_stage writes the box word of
+    every slot it stages, and the culling levels give the same bits when
+    handed those words."""
     frags, start, length, bg = small_stream
-    for level, name in enumerate(KV.RASTER_LEVELS):
-        if name == "v5_full":
-            continue
-        got = nn(KV.rasterize_level(name, frags, start, length, bg))
-        want = _numpy_level(level, nn(frags), nn(start), nn(length), bg)
-        scale = np.abs(want).max(axis=(1, 2))
-        err = np.abs(got - want).max(axis=(1, 2))
-        norm = np.where(scale > 0, err / np.where(scale > 0, scale, 1), err)
-        assert norm.max() <= LEVEL_TOL, (name, norm.max())
+    boxes = torch.full((frags.shape[1],), -1, dtype=torch.int32)
+    got = KV.rasterize_level(name, frags, start, length, bg, boxes=boxes)
+    plain_box = frag_pixel_box_plain(frags)
+    want = _numpy_level(KV.RASTER_LEVELS.index(name), nn(frags), nn(start),
+                        nn(length), bg, nn(plain_box))
+    got = nn(got)
+    scale = np.abs(want).max(axis=(1, 2))
+    err = np.abs(got - want).max(axis=(1, 2))
+    norm = np.where(scale > 0, err / np.where(scale > 0, scale, 1), err)
+    assert norm.max() <= LEVEL_TOL, (name, norm.max())
+    staged = torch.zeros(frags.shape[1], dtype=torch.bool)
+    for s, ln in zip(start.tolist(), length.tolist()):
+        staged[s:s + ln] = True
+    if name == "v1_cull":  # the plain blocks are the kernel's lanes' blocks
+        pix = KV.warp_pixels()
+        blocks = KV._warp_blocks("cpu")[:, pix]  # [4, 8 warps, 32 lanes]
+        for k, (rows, lo) in enumerate([(pix % 16, True), (pix % 16, False),
+                                        (pix // 16, True),
+                                        (pix // 16, False)]):
+            ext = rows.amin(dim=1) if lo else rows.amax(dim=1)
+            assert torch.equal(blocks[k], ext[:, None].expand(-1, 32))
+    if name == "v0_stage":
+        assert torch.equal(boxes[staged], KV.box_words(plain_box)[staged])
+        assert torch.equal(KV.box_rows(boxes[staged]), plain_box[:, staged])
+    else:
+        assert bool((boxes == -1).all())  # only v0_stage writes boxes
+    by_words = KV.rasterize_level_plain(
+        name, frags, start, length, bg,
+        cull_boxes=KV.box_words(plain_box))
+    assert torch.equal(by_words.view(torch.int32),
+                       torch.from_numpy(got).view(torch.int32))
 
 
 def test_cuda_route_never_falls_back(monkeypatch, small_stream):
     """With ``on_cpu`` answering False, each wrapper takes its CUDA route:
-    K9 and K10 launch their C entry with the level's arguments, K11 with
-    its form's grid, and none returns the plain result; without nvcc the
-    route raises."""
+    K9 and K10 launch their C entry with the level's arguments, the first
+    designs of K3 and K5 theirs with K3's and K5's, K11 with its form's
+    grid, and none returns the plain result; without nvcc the route
+    raises."""
     frags, start, length, bg = small_stream
     keys, perm, grad, gid_col, n = _permuted_stream()
     x = torch.rand(8 * 256)
@@ -220,16 +249,19 @@ def test_cuda_route_never_falls_back(monkeypatch, small_stream):
     for mod in (KV, K11):
         monkeypatch.setattr(mod, "on_cpu", lambda *t: False)
     for call in (
-        lambda: KV.rasterize_level("v2_alpha", frags, start, length, bg),
+        lambda: KV.rasterize_level("v2_q", frags, start, length, bg),
         lambda: KV.segment_sums_level("s2_gather", keys, perm, grad,
                                        gid_col, n),
+        lambda: KV.rasterize_fwd_first(frags, start, length, bg),
+        lambda: KV.segment_sums_first(keys, perm, grad, gid_col, n),
         lambda: K11.probe("capacity", x, torch.zeros_like(x), count, 256),
     ):
         with pytest.raises(RuntimeError, match="nvcc"):
             call()
 
     launches = []
-    for kernel in (KV.RASTER_LEVEL, KV.SEGSUM_LEVEL):
+    for kernel in (KV.RASTER_LEVEL, KV.SEGSUM_LEVEL, KV.RASTERIZE_FWD_FIRST,
+                   KV.SEGMENT_SUMS_FIRST):
         monkeypatch.setattr(kernel, "launch", lambda *a, **kw: launches.append(
             (a[:2], kw["work"])))
     monkeypatch.setattr(K11, "build", lambda: T.ops.cuda.BuildInfo(
@@ -239,15 +271,19 @@ def test_cuda_route_never_falls_back(monkeypatch, small_stream):
     monkeypatch.setattr(K11, "_loaded", {})
     monkeypatch.setattr(K11.PROBE, "call", lambda fn, lib, *a, **kw:
                         launches.append((fn, a[3], kw["work"])))
-    KV.rasterize_level("v2_alpha", frags, start, length, bg)
-    KV.segment_sums_level("prod_b512", keys, perm, grad, gid_col, n)
+    KV.rasterize_level("v2_q", frags, start, length, bg)
+    KV.segment_sums_level("s2_nostage", keys, perm, grad, gid_col, n)
+    KV.rasterize_fwd_first(frags, start, length, bg)
+    KV.segment_sums_first(keys, perm, grad, gid_col, n)
     for form in K11.FORMS:
         out = torch.zeros_like(x)
         K11.probe(form, x, out, count, 256)
         assert not out.any()  # no plain write
     assert launches == [
         ((2, frags.data_ptr()), start.shape[0]),
-        ((2, 512), gid_col.shape[0]),
+        ((3, keys.data_ptr()), gid_col.shape[0]),
+        ((frags.data_ptr(), frags.shape[1]), start.shape[0]),
+        ((keys.data_ptr(), perm.data_ptr()), gid_col.shape[0]),
         ("gs_probe_capacity", 8, 8),
         ("gs_probe_readback", 5, 5),
         ("gs_probe_device_launch", 8, 8),

@@ -1,8 +1,9 @@
 // The blend rules shared by the rasterizer kernels (sm_90a): K3's forward
-// and K4's backward (csrc/rasterize.cu) and K9's variant levels and K4's
-// first design (csrc/variants.cu), so every one makes the same
-// per-(pixel, fragment) decisions bit for bit; and the conservative pixel
-// box K3 and K4 cull with (frag_pixel_box). The rules are render/reference.py's and
+// (csrc/rasterize_fwd.cuh, also K9's levels), K4's backward
+// (csrc/rasterize.cu) and the first designs of K3 and K4
+// (csrc/variants.cu), so every one makes the same per-(pixel, fragment)
+// decisions bit for bit; and the conservative pixel box K3 and K4 cull
+// with (frag_pixel_box). The rules are render/reference.py's and
 // wgpu_3dgs_core_tpu/ops/rasterize.py:149-164's; the stream is f32
 // [9, F] rows x y conic_a conic_b conic_c r g b op, x/y tile-local.
 #pragma once
@@ -27,10 +28,23 @@ __device__ __forceinline__ float ring_lo_of(float cutoff_sq) {
   return __double2float_rn(static_cast<double>(cutoff_sq) * 0.64);
 }
 
+// A fragment's conic quadratic form q at a pixel, and the pixel deltas.
+// q is written with the _rn intrinsics, so no FMA contraction can make
+// K3 and K4 round it apart.
+template <int kCols>
+__device__ __forceinline__ float frag_q(float (*f)[kCols], int i, float px,
+                                        float py, float& dx, float& dy) {
+  dx = px - f[0][i];
+  dy = py - f[1][i];
+  return __fadd_rn(
+      __fadd_rn(__fmul_rn(f[2][i], __fmul_rn(dx, dx)),
+                __fmul_rn(__fmul_rn(2.0f, f[3][i]), __fmul_rn(dx, dy))),
+      __fmul_rn(f[4][i], __fmul_rn(dy, dy)));
+}
+
 // One fragment at one pixel: alpha (clamped), its unclamped value, the
 // gaussian falloff exp(-q/2) (1 in ELLIPSE mode) and the pixel deltas.
-// Returns whether the fragment is kept there. q is written with the _rn
-// intrinsics, so no FMA contraction can make K3 and K4 round it apart.
+// Returns whether the fragment is kept there.
 template <int kCols>
 __device__ __forceinline__ bool frag_alpha(float (*f)[kCols], int i,
                                            float px, float py,
@@ -38,12 +52,7 @@ __device__ __forceinline__ bool frag_alpha(float (*f)[kCols], int i,
                                            int mode, float& alpha,
                                            float& alpha_raw, float& g_exp,
                                            float& dx, float& dy) {
-  dx = px - f[0][i];
-  dy = py - f[1][i];
-  const float q = __fadd_rn(
-      __fadd_rn(__fmul_rn(f[2][i], __fmul_rn(dx, dx)),
-                __fmul_rn(__fmul_rn(2.0f, f[3][i]), __fmul_rn(dx, dy))),
-      __fmul_rn(f[4][i], __fmul_rn(dy, dy)));
+  const float q = frag_q(f, i, px, py, dx, dy);
   const float op = f[8][i];
   bool ok;
   if (mode == 1) {

@@ -59,69 +59,21 @@
 // Each warp covers an 8x4 pixel block rather than two 16-pixel rows: the
 // bench scene's boxes are about 9 pixels wide, so a block meets fewer of
 // them. Reducing one fragment at a time keeps K4 at 64 registers; three
-// at once took 127 and halved the resident blocks (PERF.md). K3's
-// first design (no cull) is K9's v5_full, K4's is variants.cu's
-// rasterize_bwd_first_kernel; both stay as measurement records.
+// at once took 127 and halved the resident blocks (PERF.md). K3's body
+// lives in rasterize_fwd.cuh, templated on the levels of K9, which
+// compiles the same source for its levels (csrc/variants.cu). The first
+// designs of K3 (no cull) and K4 are variants.cu's rasterize_fwd_first_
+// kernel and rasterize_bwd_first_kernel, kept as measurement records.
 
 #include "blend.cuh"
 #include "common.cuh"
+#include "rasterize_fwd.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = kPix / 32;
 constexpr int kBwdBatch = 128;       // K4 fragments staged per batch
 constexpr int kBwdChunks = kBwdBatch / 32;
 constexpr int kTailSlots = 4096;     // K4 padding slots zeroed per block
-
-// Thread p's pixel, row-major in the tile: warp w covers columns
-// 8 (w & 1) .. + 7 and rows 4 (w >> 1) .. + 3, lane l the block's pixel
-// (l & 7, l >> 3). The output keeps its row-major pixel order.
-__device__ __forceinline__ int pixel_of(int p) {
-  const int w = p >> 5;
-  const int l = p & 31;
-  return ((w >> 1) * 4 + (l >> 3)) * kTile + (w & 1) * 8 + (l & 7);
-}
-
-// Warp w's pixel block [x0, x1] x [y0, y1].
-__device__ __forceinline__ void warp_block(int w, int& x0, int& x1, int& y0,
-                                           int& y1) {
-  x0 = (w & 1) * 8;
-  x1 = x0 + 7;
-  y0 = (w >> 1) * 4;
-  y1 = y0 + 3;
-}
-
-// Stage fragments [col, col + count) of the stream: thread p < count
-// loads fragment p's 9 rows (one coalesced load per row) and its pixel
-// box.
-template <int kCols>
-__device__ __forceinline__ void stage_batch(const float* __restrict__ frags,
-                                            size_t fs, size_t col, int count,
-                                            int p, float cutoff_sq, int mode,
-                                            float (*s_frag)[kCols],
-                                            unsigned* s_box) {
-  if (p >= count) return;
-  float f[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    f[r] = __ldg(frags + r * fs + col + p);
-    s_frag[r][p] = f[r];
-  }
-  s_box[p] = frag_pixel_box(f[0], f[1], f[2], f[3], f[4], f[8], cutoff_sq,
-                            mode);
-}
-
-// The warp's hits among fragments [c, c + 32) of a staged batch: bit j set
-// when fragment c + j (< count) has a box meeting the warp's pixel block.
-// Warp-uniform.
-__device__ __forceinline__ unsigned warp_hits(const unsigned* s_box, int c,
-                                              int count, int lane, int x0,
-                                              int x1, int y0, int y1) {
-  const int j = c + lane;
-  return __ballot_sync(kFull,
-                       j < count && box_hits(s_box[j], x0, x1, y0, y1));
-}
 
 // A warp's reduce-scatter of its lanes' 9 values: after it, the lane that
 // reduce_scatter_row names holds the sum over the 32 lanes of value row.
@@ -179,73 +131,6 @@ __device__ __forceinline__ int reduce_scatter_row(int lane) {
     }
   }
   return real > 0 ? off : -1;
-}
-
-// K3: blocks [0, n_tiles), one 256-thread block per tile.
-__global__ void __launch_bounds__(kPix)
-rasterize_fwd_kernel(const float* __restrict__ frags, int f_stride,
-                     const int* __restrict__ tile_start,
-                     const int* __restrict__ tile_len, float bg_r, float bg_g,
-                     float bg_b, float cutoff_sq, int mode,
-                     float* __restrict__ out) {
-  __shared__ float s_frag[kRows][kBatch];
-  __shared__ unsigned s_box[kBatch];
-
-  const int tile = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p & 31;
-  const int pix = pixel_of(p);
-  // Tile-local pixel centre: the stream's x/y rows are tile-local.
-  const float px = static_cast<float>(pix % kTile) + 0.5f;
-  const float py = static_cast<float>(pix / kTile) + 0.5f;
-  int x0, x1, y0, y1;
-  warp_block(p >> 5, x0, x1, y0, y1);
-  const int start = __ldg(tile_start + tile);
-  const int len = __ldg(tile_len + tile);
-  const float ring_lo = ring_lo_of(cutoff_sq);
-  const size_t fs = static_cast<size_t>(f_stride);
-
-  float t = 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  bool done = false;
-
-  for (int base = 0; base < len; base += kBatch) {
-    // Also the barrier that keeps the previous batch alive until every
-    // thread has finished reading it.
-    if (__syncthreads_count(done) == kPix) break;
-    const int count = min(kBatch, len - base);
-    stage_batch(frags, fs, static_cast<size_t>(start) + base, count, p,
-                cutoff_sq, mode, s_frag, s_box);
-    __syncthreads();
-    for (int c = 0; c < count; c += 32) {
-      unsigned hits = warp_hits(s_box, c, count, lane, x0, x1, y0, y1);
-      if (done) continue;
-      while (hits) {
-        const int i = c + __ffs(hits) - 1;
-        hits &= hits - 1;
-        float alpha, alpha_raw, g_exp, dx, dy;
-        if (!frag_alpha(s_frag, i, px, py, cutoff_sq, ring_lo, mode, alpha,
-                        alpha_raw, g_exp, dx, dy)) {
-          continue;
-        }
-        const float w = alpha * t;
-        acc_r += w * s_frag[5][i];
-        acc_g += w * s_frag[6][i];
-        acc_b += w * s_frag[7][i];
-        t *= 1.0f - alpha;
-        if (t <= kTMin) {
-          done = true;
-          break;
-        }
-      }
-    }
-  }
-
-  float* o = out + static_cast<size_t>(tile) * 4 * kPix;
-  o[0 * kPix + pix] = acc_r + t * bg_r;
-  o[1 * kPix + pix] = acc_g + t * bg_g;
-  o[2 * kPix + pix] = acc_b + t * bg_b;
-  o[3 * kPix + pix] = t;
 }
 
 // K4: blocks [0, n_tiles) each differentiate one tile; the blocks after
@@ -421,11 +306,9 @@ GS_EXPORT int gs_rasterize_fwd(const float* frags, int f_stride,
                                int n_tiles, float bg_r, float bg_g,
                                float bg_b, float cutoff_sq, int mode,
                                float* out, void* stream) {
-  rasterize_fwd_kernel<<<n_tiles, kPix, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      frags, f_stride, tile_start, tile_len, bg_r, bg_g, bg_b, cutoff_sq,
-      mode, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_rasterize_fwd<kV6Full>(
+      frags, f_stride, tile_start, tile_len, n_tiles, bg_r, bg_g, bg_b,
+      cutoff_sq, mode, out, nullptr, static_cast<cudaStream_t>(stream)));
 }
 
 // frags: f32 [9, f_stride], the stream K3 read; tile_start, tile_len,

@@ -1,131 +1,73 @@
-// Variant benches of the rasterizer (K9) and of the segment sums (K10),
-// and the first designs of K4 and K7, for sm_90a: each kernel of K9 and
-// K10 is a stripped copy of a production kernel, one ingredient per level,
-// timed over the same inputs so the step from one level to the next prices
-// that ingredient.
+// The measurement kernels of the rasterizer (K9) and of the segment sums
+// (K10), and the first designs of K3, K4, K5 and K7, for sm_90a.
 //
 // K9 replaces tools/bench_kernel_variants.py::run_variant (pl.pallas_call
-//    at bench_kernel_variants.py:239, level bodies in _mk_kernel). It
-//    varies K3 (csrc/rasterize.cu): one 256-thread block per 16x16 tile,
-//    fragments staged through shared memory in batches of kBatch, the
-//    blend rules of blend.cuh. Levels, cumulative:
-//      0 v0_stage    the batch staging, plus one staged value (opacity)
-//                    summed per pixel over the tile's fragments;
-//      1 v1_q        the conic q of every (pixel, fragment) pair, summed;
-//      2 v2_alpha    frag_alpha (expf, clamp, cutoff and 1/255 tests), the
-//                    kept alphas summed;
-//      3 v3_trans    the T recurrence over the kept fragments, blending only
-//                    while T > 1e-4 but never leaving the loop; no colour;
-//      4 v4_color    the colour accumulation, still with no early exit
-//                    (its output equals K3's: the same blends, in order);
-//      5 v5_full     K3's body: the per-pixel stop and the block-wide
-//                    __syncthreads_count exit; bit for bit K3's output;
-//      6 v6_notrans  v5 with expf replaced by 1 - q/2, arithmetic of the
-//                    same shape: v5 - v6 prices the transcendental.
-//    v5_full is K3's first design (no pixel-box cull), kept as its record.
-//    Levels 0-2 write their sum in channel 0 and zeros in 1-3; levels 3-6
-//    write K3's [4, 256] tile (RGB + T * background, then T). The TPU
-//    tool's v3_alpha_mxu, v4/v5_cumsum, v6_full_mxuacc and v9_nosum price
-//    MXU matmuls and lane-tree sums that K3 does not do: no level here.
+//    at bench_kernel_variants.py:239, level bodies in _mk_kernel): K3
+//    stripped one ingredient per level, timed over K3's arguments, so the
+//    step from one level to the next prices that ingredient. Its levels
+//    are instantiations of K3's own body (csrc/rasterize_fwd.cuh, where
+//    they are listed): v0_stage, v1_cull, v2_q, v3_alpha, v4_trans,
+//    v5_color, v6_full (K3 itself, compiled from the same source) and
+//    v7_notrans. The TPU tool's v3_alpha_mxu, v4/v5_cumsum,
+//    v6_full_mxuacc and v9_nosum price MXU matmuls and lane-tree sums
+//    that K3 does not do: no level here.
 //
 // K10 replaces tools/bench_segsum.py::run_variant (pl.pallas_call at
-//    bench_segsum.py:104, level bodies in _mk_kernel). It varies K5's
-//    first design, which the levels keep as its record (csrc/segreduce.cu
-//    has since put its lanes over the sorted slots): one warp per row of
-//    the compacted gid column, the lanes striding over the row's run, a
-//    fixed-order warp butterfly. Levels, cumulative:
-//      0 s0_stream   each warp sums a fixed run of f / n_rows slots of the
-//                    already-permuted gradients: no search, no permutation
-//                    (the streaming floor);
-//      1 s1_search   the two lower_bound searches for the row's run, still
-//                    over the pre-permuted gradients: the design's
-//                    summation order, so bit for bit s2_gather's output;
-//      2 s2_gather   the read through the sort's permutation: the first
-//                    design's K5 itself;
-//    and s2_gather at 128 and 512 threads per block (prod_b128,
-//    prod_b512).
-//    The TPU tool's key transpose, one-hot build and HIGHEST contraction
-//    have no counterpart on the card.
+//    bench_segsum.py:104, level bodies in _mk_kernel): K5 stripped the
+//    same way, over K5's arguments. Its levels are instantiations of K5's
+//    own kernels (csrc/segsum.cuh): s0_prep, s1_scan, s2_gather (K5
+//    itself) and s2_nostage. The TPU tool's key transpose, one-hot build
+//    and HIGHEST contraction have no counterpart on the card.
 //
-// K4's first design (measurement only, like K10), kept as its record:
-//    rasterize_bwd_first_kernel, K4 before the pixel-box cull, where every
-//    pixel evaluates every fragment, a warp sums each of its 9 values with
-//    a 5-step butterfly per fragment and lane 0 makes the nine stores. It
-//    takes K4's arguments and gives its [9, F] gradients.
-//
-// K7's first design (measurement only), kept as its record:
-//    expand_bbox_first_kernel, one thread per slot over the capacity, each
-//    finding its owner by a binary search over the whole table's offsets
-//    (common.cuh gs_owner, ~20 dependent loads at 1M rows). It takes K7's
-//    arguments and gives its [2, cap] tile and gid rows.
+// The first designs (measurement only), each kept as one kernel and
+//    timed in turns with its successor:
+//    rasterize_fwd_first_kernel, K3 before the pixel-box cull: thread p on
+//      row-major pixel p, every pixel evaluating every staged fragment;
+//      K3's arguments and its tile, bit for bit.
+//    rasterize_bwd_first_kernel, K4 before the cull, where every pixel
+//      evaluates every fragment, a warp sums each of its 9 values with a
+//      5-step butterfly per fragment and lane 0 makes the nine stores;
+//      K4's arguments and its [9, F] gradients.
+//    segment_sums_first_kernel, K5 before its lanes went over the sorted
+//      slots: one warp per row of the compacted gid column, the row's run
+//      found by two lower_bound searches over the keys, the lanes striding
+//      over it through the permutation into [9, F], a fixed-order warp
+//      butterfly; K5's arguments and its [9, rows] sums (in another
+//      order).
+//    expand_bbox_first_kernel, K7 before the merge path: one thread per
+//      slot over the capacity, each finding its owner by a binary search
+//      over the whole table's offsets (common.cuh gs_owner, ~20 dependent
+//      loads at 1M rows); K7's arguments and its [2, cap] tile and gid
+//      rows.
 //
 // What bounds them: K9's full level is K3's work (per-(pixel, fragment)
 // arithmetic, ~20 flops to evaluate and ~9 to blend); K10's full level is
-// K5's work (48 B per drawn slot, 36 B per row). Every level writes a result
-// that depends on all the work it did, so nvcc cannot drop any of it.
+// K5's work (48 B per drawn slot, 36 B per row). Every level writes a
+// result that depends on all the work it did, so nvcc cannot drop any of
+// it.
 
 #include "blend.cuh"
 #include "common.cuh"
+#include "rasterize_fwd.cuh"
+#include "segsum.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = kPix / 32;
 constexpr int kBwdBatch = 128;    // K4 fragments staged per batch
 constexpr int kTailSlots = 4096;  // K4 padding slots zeroed per block
 
-// ------------------------------------------------------------------- K9
+// ------------------------------------------------ K3's first design
 
-enum RasterLevel : int {
-  kV0Stage = 0,
-  kV1Q = 1,
-  kV2Alpha = 2,
-  kV3Trans = 3,
-  kV4Color = 4,
-  kV5Full = 5,
-  kV6NoTrans = 6,
-};
-
-// frag_alpha's conic quadratic form, rounded as there.
-template <int kCols>
-__device__ __forceinline__ float frag_q(float (*f)[kCols], int i, float px,
-                                        float py, float& dx, float& dy) {
-  dx = px - f[0][i];
-  dy = py - f[1][i];
-  return __fadd_rn(
-      __fadd_rn(__fmul_rn(f[2][i], __fmul_rn(dx, dx)),
-                __fmul_rn(__fmul_rn(2.0f, f[3][i]), __fmul_rn(dx, dy))),
-      __fmul_rn(f[4][i], __fmul_rn(dy, dy)));
-}
-
-// frag_alpha with the falloff exp(-q/2) replaced by 1 - q/2.
-template <int kCols>
-__device__ __forceinline__ bool frag_alpha_notrans(
-    float (*f)[kCols], int i, float px, float py, float cutoff_sq,
-    float ring_lo, int mode, float& alpha) {
-  float dx, dy;
-  const float q = frag_q(f, i, px, py, dx, dy);
-  const float op = f[8][i];
-  bool ok;
-  float alpha_raw;
-  if (mode == 1) {
-    alpha_raw = op;
-    ok = (q <= cutoff_sq) && (q >= ring_lo);
-  } else {
-    alpha_raw = __fmul_rn(op, __fadd_rn(1.0f, __fmul_rn(-0.5f, q)));
-    ok = q <= cutoff_sq;
-  }
-  alpha = fminf(alpha_raw, kAlphaClamp);
-  return ok && (alpha >= kAlphaMin);
-}
-
-template <int kLevel>
+// K3's first design (csrc/rasterize.cu before the pixel-box cull): blocks
+// [0, n_tiles), one 256-thread block per tile, thread p on row-major pixel
+// p, every pixel evaluating every fragment of each staged batch, with
+// K3's per-pixel stop and block exit.
 __global__ void __launch_bounds__(kPix)
-raster_level_kernel(const float* __restrict__ frags, int f_stride,
-                    const int* __restrict__ tile_start,
-                    const int* __restrict__ tile_len, float bg_r, float bg_g,
-                    float bg_b, float cutoff_sq, int mode,
-                    float* __restrict__ out) {
+rasterize_fwd_first_kernel(const float* __restrict__ frags, int f_stride,
+                           const int* __restrict__ tile_start,
+                           const int* __restrict__ tile_len, float bg_r,
+                           float bg_g, float bg_b, float cutoff_sq, int mode,
+                           float* __restrict__ out) {
   __shared__ float s_frag[kRows][kBatch];
 
   const int tile = blockIdx.x;
@@ -137,15 +79,11 @@ raster_level_kernel(const float* __restrict__ frags, int f_stride,
   const float ring_lo = ring_lo_of(cutoff_sq);
 
   float t = 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;  // levels 0-2: the sum
-  bool done = false;                              // set by levels 5-6 only
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  bool done = false;
 
   for (int base = 0; base < len; base += kBatch) {
-    if (kLevel >= kV5Full) {
-      if (__syncthreads_count(done) == kPix) break;
-    } else {
-      __syncthreads();
-    }
+    if (__syncthreads_count(done) == kPix) break;
     const int count = min(kBatch, len - base);
     if (p < count) {
       const size_t col = static_cast<size_t>(start) + base + p;
@@ -157,40 +95,17 @@ raster_level_kernel(const float* __restrict__ frags, int f_stride,
     __syncthreads();
     if (done) continue;
     for (int i = 0; i < count; ++i) {
-      if (kLevel == kV0Stage) {
-        acc_r += s_frag[8][i];
+      float alpha, alpha_raw, g_exp, dx, dy;
+      if (!frag_alpha(s_frag, i, px, py, cutoff_sq, ring_lo, mode, alpha,
+                      alpha_raw, g_exp, dx, dy)) {
         continue;
       }
-      if (kLevel == kV1Q) {
-        float dx, dy;
-        acc_r += frag_q(s_frag, i, px, py, dx, dy);
-        continue;
-      }
-      float alpha;
-      bool keep;
-      if (kLevel == kV6NoTrans) {
-        keep = frag_alpha_notrans(s_frag, i, px, py, cutoff_sq, ring_lo,
-                                  mode, alpha);
-      } else {
-        float alpha_raw, g_exp, dx, dy;
-        keep = frag_alpha(s_frag, i, px, py, cutoff_sq, ring_lo, mode, alpha,
-                          alpha_raw, g_exp, dx, dy);
-      }
-      if (kLevel == kV2Alpha) {
-        if (keep) acc_r += alpha;
-        continue;
-      }
-      if (!keep) continue;
-      // Levels 3-4: K3's blend rule (blend while T > 1e-4) as a mask.
-      if (kLevel < kV5Full && t <= kTMin) continue;
       const float w = alpha * t;
-      if (kLevel != kV3Trans) {
-        acc_r += w * s_frag[5][i];
-        acc_g += w * s_frag[6][i];
-        acc_b += w * s_frag[7][i];
-      }
+      acc_r += w * s_frag[5][i];
+      acc_g += w * s_frag[6][i];
+      acc_b += w * s_frag[7][i];
       t *= 1.0f - alpha;
-      if (kLevel >= kV5Full && t <= kTMin) {
+      if (t <= kTMin) {
         done = true;
         break;
       }
@@ -198,29 +113,10 @@ raster_level_kernel(const float* __restrict__ frags, int f_stride,
   }
 
   float* o = out + static_cast<size_t>(tile) * 4 * kPix;
-  if (kLevel <= kV2Alpha) {
-    o[0 * kPix + p] = acc_r;
-    o[1 * kPix + p] = 0.0f;
-    o[2 * kPix + p] = 0.0f;
-    o[3 * kPix + p] = 0.0f;
-  } else {
-    o[0 * kPix + p] = acc_r + t * bg_r;
-    o[1 * kPix + p] = acc_g + t * bg_g;
-    o[2 * kPix + p] = acc_b + t * bg_b;
-    o[3 * kPix + p] = t;
-  }
-}
-
-template <int kLevel>
-cudaError_t launch_raster_level(const float* frags, int f_stride,
-                                const int* tile_start, const int* tile_len,
-                                int n_tiles, float bg_r, float bg_g,
-                                float bg_b, float cutoff_sq, int mode,
-                                float* out, cudaStream_t stream) {
-  raster_level_kernel<kLevel><<<n_tiles, kPix, 0, stream>>>(
-      frags, f_stride, tile_start, tile_len, bg_r, bg_g, bg_b, cutoff_sq,
-      mode, out);
-  return cudaGetLastError();
+  o[0 * kPix + p] = acc_r + t * bg_r;
+  o[1 * kPix + p] = acc_g + t * bg_g;
+  o[2 * kPix + p] = acc_b + t * bg_b;
+  o[3 * kPix + p] = t;
 }
 
 // ------------------------------------------------ K4's first design
@@ -377,76 +273,50 @@ rasterize_bwd_first_kernel(const float* __restrict__ frags, int f_stride,
   }
 }
 
-// ------------------------------------------------------------------ K10
+// ------------------------------------------------ K5's first design
 
-enum SegsumLevel : int {
-  kS0Stream = 0,
-  kS1Search = 1,
-  kS2Gather = 2,
-};
+constexpr int kFirstThreads = 256;  // K5's first design: 8 rows a block
 
-constexpr int kGradRows = 9;
-
-// grad: f32 [9, f], read at slot perm[j] (level 2) or at j (levels 0-1,
-// the gradients already in key order).
-template <int kLevel, int kThreads>
-__global__ void __launch_bounds__(kThreads)
-segsum_level_kernel(const int* __restrict__ keys,
-                    const long long* __restrict__ perm,
-                    const float* __restrict__ grad, int f,
-                    const int* __restrict__ gid_col, int n_rows, int n,
-                    float* __restrict__ out) {
-  const int row = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+// K5's first design: warp w of the grid sums row w of the gid column over
+// the slots whose key equals it (rows past the live ones hold the
+// sentinel n and get zeros), reading grad [9, f] at perm[j].
+__global__ void __launch_bounds__(kFirstThreads)
+segment_sums_first_kernel(const int* __restrict__ keys,
+                          const long long* __restrict__ perm,
+                          const float* __restrict__ grad, int f,
+                          const int* __restrict__ gid_col, int n_rows, int n,
+                          float* __restrict__ out) {
+  const int row = (blockIdx.x * kFirstThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;  // whole warps: kThreads is a multiple of 32
+  if (row >= n_rows) return;  // whole warps
   const size_t fs = static_cast<size_t>(f);
-  float acc[kGradRows];
+  float acc[kRows];
 #pragma unroll
-  for (int r = 0; r < kGradRows; ++r) acc[r] = 0.0f;
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
   int lo = 0;
   int hi = 0;
-  if (kLevel == kS0Stream) {
-    const int run = f / n_rows;
-    lo = row * run;
-    hi = lo + run;
-  } else {
-    const int gid = __ldg(gid_col + row);
-    if (gid < n) {  // rows past the live ones hold the sentinel n
-      lo = gs_lower_bound(keys, f, gid);
-      hi = gs_lower_bound(keys, f, gid + 1);
-    }
+  const int gid = __ldg(gid_col + row);
+  if (gid < n) {
+    lo = gs_lower_bound(keys, f, gid);
+    hi = gs_lower_bound(keys, f, gid + 1);
   }
   for (int j = lo + lane; j < hi; j += 32) {
-    const size_t src = kLevel == kS2Gather
-                           ? static_cast<size_t>(__ldg(perm + j))
-                           : static_cast<size_t>(j);
+    const size_t src = static_cast<size_t>(__ldg(perm + j));
 #pragma unroll
-    for (int r = 0; r < kGradRows; ++r) acc[r] += __ldg(grad + r * fs + src);
+    for (int r = 0; r < kRows; ++r) acc[r] += __ldg(grad + r * fs + src);
   }
 #pragma unroll
-  for (int r = 0; r < kGradRows; ++r) {
+  for (int r = 0; r < kRows; ++r) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+      acc[r] += __shfl_xor_sync(kFull, acc[r], off);
     }
   }
   if (lane == 0) {
     const size_t ns = static_cast<size_t>(n_rows);
 #pragma unroll
-    for (int r = 0; r < kGradRows; ++r) out[r * ns + row] = acc[r];
+    for (int r = 0; r < kRows; ++r) out[r * ns + row] = acc[r];
   }
-}
-
-template <int kLevel, int kThreads>
-cudaError_t launch_segsum_level(const int* keys, const long long* perm,
-                                const float* grad, int f, const int* gid_col,
-                                int n_rows, int n, float* out,
-                                cudaStream_t stream) {
-  const int warps_per_block = kThreads / 32;
-  const int blocks = (n_rows + warps_per_block - 1) / warps_per_block;
-  segsum_level_kernel<kLevel, kThreads><<<blocks, kThreads, 0, stream>>>(
-      keys, perm, grad, f, gid_col, n_rows, n, out);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------ K7's first design
@@ -476,64 +346,93 @@ expand_bbox_first_kernel(const int* __restrict__ tab, int n,
 
 }  // namespace
 
-// K9 level `level` (0-6, above) over K3's arguments: frags f32 [9, f_stride]
-// tile-sorted, x/y tile-local; tile_start, tile_len int32 [n_tiles]; out f32
-// [n_tiles, 4, 256]. n_tiles > 0: the caller launches nothing for an empty
-// grid. An unknown level returns cudaErrorInvalidValue.
+// K9 level `level` (0-7, csrc/rasterize_fwd.cuh; 6 is K3) over K3's
+// arguments: frags f32 [9, f_stride] tile-sorted, x/y tile-local;
+// tile_start, tile_len int32 [n_tiles]; out f32 [n_tiles, 4, 256]; boxes
+// uint32 [f_stride], where level 0 writes the box word of each slot it
+// stages (the other levels leave it alone). n_tiles > 0: the caller
+// launches nothing for an empty grid. An unknown level returns
+// cudaErrorInvalidValue.
 GS_EXPORT int gs_raster_level(int level, const float* frags, int f_stride,
                               const int* tile_start, const int* tile_len,
                               int n_tiles, float bg_r, float bg_g,
                               float bg_b, float cutoff_sq, int mode,
-                              float* out, void* stream) {
+                              float* out, unsigned* boxes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (level) {
 #define GS_RASTER_LEVEL(L)                                                  \
   case L:                                                                   \
-    return static_cast<int>(launch_raster_level<L>(                        \
+    return static_cast<int>(launch_rasterize_fwd<L>(                       \
         frags, f_stride, tile_start, tile_len, n_tiles, bg_r, bg_g, bg_b,  \
-        cutoff_sq, mode, out, s));
+        cutoff_sq, mode, out, L == kV0Stage ? boxes : nullptr, s));
     GS_RASTER_LEVEL(kV0Stage)
-    GS_RASTER_LEVEL(kV1Q)
-    GS_RASTER_LEVEL(kV2Alpha)
-    GS_RASTER_LEVEL(kV3Trans)
-    GS_RASTER_LEVEL(kV4Color)
-    GS_RASTER_LEVEL(kV5Full)
-    GS_RASTER_LEVEL(kV6NoTrans)
+    GS_RASTER_LEVEL(kV1Cull)
+    GS_RASTER_LEVEL(kV2Q)
+    GS_RASTER_LEVEL(kV3Alpha)
+    GS_RASTER_LEVEL(kV4Trans)
+    GS_RASTER_LEVEL(kV5Color)
+    GS_RASTER_LEVEL(kV6Full)
+    GS_RASTER_LEVEL(kV7NoTrans)
 #undef GS_RASTER_LEVEL
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// K10 level `level` (0-2, above) at `threads` per block (256; level 2 also
-// 128 and 512) over K5's arguments: keys int32 [f] ascending; perm int64
-// [f]; grad f32 [9, f], in slot order for level 2 and in key order
-// (grad[:, perm]) for levels 0-1; gid_col int32 [n_rows] ascending, n past
-// the live rows; out f32 [9, n_rows]. n_rows > 0, as above. Any other
-// (level, threads) returns cudaErrorInvalidValue.
-GS_EXPORT int gs_segsum_level(int level, int threads, const int* keys,
+// K3's first design over K3's arguments (as gs_rasterize_fwd takes them).
+GS_EXPORT int gs_rasterize_fwd_first(const float* frags, int f_stride,
+                                     const int* tile_start,
+                                     const int* tile_len, int n_tiles,
+                                     float bg_r, float bg_g, float bg_b,
+                                     float cutoff_sq, int mode, float* out,
+                                     void* stream) {
+  rasterize_fwd_first_kernel<<<n_tiles, kPix, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      frags, f_stride, tile_start, tile_len, bg_r, bg_g, bg_b, cutoff_sq,
+      mode, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10 level `level` (0-3, csrc/segsum.cuh; 2 is K5) over K5's arguments
+// (as gs_segment_sums takes them; grad in key order, grad[:, perm], for
+// level 1; grad_t unused by level 3, which may pass null). Level 0 writes
+// only grad_t, row_of and the zeroed out. An unknown level returns
+// cudaErrorInvalidValue.
+GS_EXPORT int gs_segsum_level(int level, const int* keys,
                               const long long* perm, const float* grad, int f,
                               const int* gid_col, int n_rows, int n,
-                              float* out, void* stream) {
+                              float* out, float* grad_t, int* row_of,
+                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (level == kS0Stream && threads == 256) {
-    err = launch_segsum_level<kS0Stream, 256>(keys, perm, grad, f, gid_col,
-                                              n_rows, n, out, s);
-  } else if (level == kS1Search && threads == 256) {
-    err = launch_segsum_level<kS1Search, 256>(keys, perm, grad, f, gid_col,
-                                              n_rows, n, out, s);
-  } else if (level == kS2Gather && threads == 256) {
-    err = launch_segsum_level<kS2Gather, 256>(keys, perm, grad, f, gid_col,
-                                              n_rows, n, out, s);
-  } else if (level == kS2Gather && threads == 128) {
-    err = launch_segsum_level<kS2Gather, 128>(keys, perm, grad, f, gid_col,
-                                              n_rows, n, out, s);
-  } else if (level == kS2Gather && threads == 512) {
-    err = launch_segsum_level<kS2Gather, 512>(keys, perm, grad, f, gid_col,
-                                              n_rows, n, out, s);
+  switch (level) {
+#define GS_SEGSUM_LEVEL(L)                                                  \
+  case segsum::L:                                                           \
+    return static_cast<int>(segsum::launch_segment_sums<segsum::L>(        \
+        keys, perm, grad, f, gid_col, n_rows, n, out, grad_t, row_of, s));
+    GS_SEGSUM_LEVEL(kS0Prep)
+    GS_SEGSUM_LEVEL(kS1Scan)
+    GS_SEGSUM_LEVEL(kS2Gather)
+    GS_SEGSUM_LEVEL(kS2NoStage)
+#undef GS_SEGSUM_LEVEL
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+}
+
+// K5's first design over K5's arguments, without its scratch: keys int32
+// [f] ascending; perm int64 [f]; grad f32 [9, f] in slot order; gid_col
+// int32 [n_rows] ascending, n past the live rows; out f32 [9, n_rows].
+// n_rows > 0.
+GS_EXPORT int gs_segment_sums_first(const int* keys, const long long* perm,
+                                    const float* grad, int f,
+                                    const int* gid_col, int n_rows, int n,
+                                    float* out, void* stream) {
+  const int rows_per_block = kFirstThreads / 32;
+  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  segment_sums_first_kernel<<<blocks, kFirstThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      keys, perm, grad, f, gid_col, n_rows, n, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K4's first design over K4's arguments: frags f32 [9, f_stride];

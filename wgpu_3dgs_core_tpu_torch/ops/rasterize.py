@@ -212,6 +212,14 @@ RASTERIZE_FWD = CudaKernel(
 )
 
 
+def check_fwd_args(frags, tile_start, tile_len):
+    """Validate K3's tensor arguments (dtypes, shapes, layout)."""
+    n_t = tile_start.shape[0]
+    check(frags, "frags", torch.float32, (FRAG_ROWS, None))
+    check(tile_start, "tile_start", torch.int32, (n_t,))
+    check(tile_len, "tile_len", torch.int32, (n_t,))
+
+
 def rasterize_tiles_fwd(frags, tile_start, tile_len, bg,
                         cutoff_sq: float = Q_CUTOFF,
                         mode: int = 0) -> torch.Tensor:
@@ -219,14 +227,12 @@ def rasterize_tiles_fwd(frags, tile_start, tile_len, bg,
     ``tile_start[t]`` of the stream ``frags`` [9, F]. Returns [T, 4, 256]
     f32; a tile with no fragments comes out as the background with T = 1.
     """
-    n_t = tile_start.shape[0]
-    check(frags, "frags", torch.float32, (FRAG_ROWS, None))
-    check(tile_start, "tile_start", torch.int32, (n_t,))
-    check(tile_len, "tile_len", torch.int32, (n_t,))
+    check_fwd_args(frags, tile_start, tile_len)
     if on_cpu(frags, tile_start, tile_len):
         return rasterize_tiles_fwd_plain(frags, tile_start, tile_len, bg,
                                          cutoff_sq, mode)
     dev = frags.device
+    n_t = tile_start.shape[0]
     out = torch.empty((n_t, 4, PIX), dtype=torch.float32, device=dev)
     RASTERIZE_FWD.launch(
         frags.data_ptr(), frags.shape[1], tile_start.data_ptr(),

@@ -85,6 +85,15 @@ def segment_sums_sorted_plain(keys, perm, grad, gid_col,
     return torch.where(gid_col < n, sums, 0.0)
 
 
+def check_segsum_args(keys, perm, grad, gid_col):
+    """Validate K5's tensor arguments (dtypes, shapes, layout)."""
+    f, rows = keys.shape[0], gid_col.shape[0]
+    check(keys, "keys", torch.int32, (f,))
+    check(perm, "perm", torch.int64, (f,))
+    check(grad, "grad", torch.float32, (GRAD_ROWS, f))
+    check(gid_col, "gid_col", torch.int32, (rows,))
+
+
 SEGMENT_SUMS = CudaKernel(
     "segment_sums", "gs_segment_sums", [P, P, P, I, P, I, I, P, P, P],
 )
@@ -95,13 +104,10 @@ def segment_sums_sorted(keys, perm, grad, gid_col, n: int) -> torch.Tensor:
     order) over the slots whose sorted ``keys`` [F] (int32, with ``perm``
     [F] int64 the slot of each) equal the row's ``gid_col`` entry; rows
     holding the sentinel ``n`` get zeros."""
-    f, rows = keys.shape[0], gid_col.shape[0]
-    check(keys, "keys", torch.int32, (f,))
-    check(perm, "perm", torch.int64, (f,))
-    check(grad, "grad", torch.float32, (GRAD_ROWS, f))
-    check(gid_col, "gid_col", torch.int32, (rows,))
+    check_segsum_args(keys, perm, grad, gid_col)
     if on_cpu(keys, perm, grad, gid_col):
         return segment_sums_sorted_plain(keys, perm, grad, gid_col, n)
+    f, rows = keys.shape[0], gid_col.shape[0]
     dev = grad.device
     out = torch.empty((GRAD_ROWS, rows), dtype=torch.float32, device=dev)
     # Scratch: the gradients slot-major, and each gaussian's row.

@@ -106,16 +106,17 @@ def _tail(path: Path) -> str:
 
 
 def spawn_ranks(fn: Callable, world_size: int, args: Sequence = (), *,
-                backend: str, device: str = "cpu",
+                backend: str, device: str = "cuda",
                 timeout: float = 300.0) -> list:
     """Run ``fn(rank, world_size, device, *args)`` on ``world_size`` new
     processes that form one process group, and return each rank's result
     (tensors moved to the CPU) in rank order.
 
     ``fn`` must be importable by name (a module-level function), and
-    ``args`` picklable. ``device`` is ``"cpu"`` or ``"cuda"``: on CUDA rank
-    r drives card r modulo the cards it sees, so under gloo several ranks
-    may share one card, and under NCCL each needs its own. Raises
+    ``args`` picklable. ``device`` is ``"cuda"`` (the default) or
+    ``"cpu"``: on CUDA rank r drives card r modulo the cards it sees, so
+    under gloo several ranks may share one card, and under NCCL each needs
+    its own. Raises
     RuntimeError, with every failed rank's traceback and log, if a rank
     fails or the ranks do not all finish within ``timeout`` seconds; the
     ranks are killed then.

@@ -2,28 +2,33 @@
 
 The counterpart of ``tools/bench_kernel_variants.py``, which attributes the
 TPU forward blend's per-block cost by adding one ingredient per level over
-the same inputs. The port asks it of K3 (``csrc/rasterize.cu``: one
-256-thread block per 16x16 tile, fragments staged through shared memory
-in batches). Levels, cumulative, in ``csrc/variants.cu`` (wrapped by
-``ops/variants.py``):
+the same inputs. The port asks it of K3 as it runs (``csrc/rasterize.cu``:
+one 256-thread block per 16x16 tile, each warp on an 8x4 pixel block,
+fragments staged through shared memory in batches with their pixel boxes,
+each warp walking only the fragments whose box meets its block). The
+levels are instantiations of K3's own source (``csrc/rasterize_fwd.cuh``,
+wrapped by ``ops/variants.py``), cumulative:
 
-- ``v0_stage``: the batch staging, plus one staged value (opacity) summed
-  per pixel;
-- ``v1_q``: the conic q of every (pixel, fragment) pair, summed;
-- ``v2_alpha``: alpha (exp, clamp, cutoff and 1/255 tests), the kept
+- ``v0_stage``: the batch staging and each fragment's pixel box; every
+  pixel sums the staged opacities;
+- ``v1_cull``: the warp's ballot walk over the fragments whose box meets
+  its block, summing their opacities;
+- ``v2_q``: q of each walked (pixel, fragment) pair, summed;
+- ``v3_alpha``: alpha (exp, clamp, cutoff and 1/255 tests), the kept
   alphas summed;
-- ``v3_trans``: the T recurrence over the kept fragments (blending while
-  T > 1e-4, never leaving the loop), no colour: K3's tile for black
-  fragments;
-- ``v4_color``: the colour accumulation, still with no early exit: K3's
-  tile;
-- ``v5_full``: K3's body with its per-pixel stop and block-wide exit: K3's
-  tile bit for bit;
-- ``v6_notrans``: ``v5_full`` with exp(-q/2) replaced by 1 - q/2: the
-  step from ``v6`` to ``v5`` prices the transcendental.
+- ``v4_trans``: the T recurrence while T > 1e-4, no stop, no colour: K3's
+  tile for black fragments;
+- ``v5_color``: the colour, still no stop: K3's tile;
+- ``v6_full``: the per-pixel stop and the block's exit: K3 itself, bit for
+  bit;
+- ``v7_notrans``: ``v6_full`` with exp(-q/2) replaced by 1 - q/2: its step
+  from ``v6_full`` prices the transcendental.
 
-Levels 0-2 give their per-pixel sum in channel 0 (channels 1-3 zero);
-levels 3-6 a K3 tile [4, 256]. The TPU tool's MXU levels (``v3_alpha_mxu``,
+Levels 0-3 give their per-pixel sum in channel 0 (channels 1-3 zero);
+levels 4-7 a K3 tile [4, 256]. K3's first design (no cull,
+``ops/variants.py::rasterize_fwd_first``) is timed beside them. On a card
+every time is device time (torch.profiler, ``utils/profiling.py::
+kernel_ms``). The TPU tool's MXU levels (``v3_alpha_mxu``,
 ``v4``/``v5_cumsum``, ``v6_full_mxuacc``) and ``v9_nosum`` price matmuls
 and lane-tree sums K3 does not do, and have no level here.
 
@@ -56,17 +61,22 @@ from ..ops.binning import (
 from ..ops.rasterize import (
     ALPHA_MIN,
     FRAG_ROWS,
-    PIX,
     Q_CUTOFF,
     frag_pixel_box_plain,
 )
-from ..ops.variants import RASTER_LEVELS, rasterize_level
+from ..ops.variants import (
+    RASTER_LEVELS,
+    rasterize_fwd_first,
+    rasterize_level,
+    staged_slots,
+    warp_pixels,
+)
 from ..render.renderer import (
     measure_capacities,
     project_and_color,
     tile_local_stream,
 )
-from ..utils.profiling import block_and_time, device_name
+from ..utils.profiling import device_name, kernel_ms
 
 
 def bench_stream(scene, camera, max_fragments: int, max_rows: int,
@@ -214,32 +224,16 @@ def hard_tiles(device="cpu", seed: int = 0):
     return out
 
 
-def warp_pixels() -> torch.Tensor:
-    """The row-major pixels of each warp's lanes in K3 and K4, int64
-    [8, 32], as ``csrc/rasterize.cu::pixel_of`` maps them: warp w on an
-    8x4 block, columns 8 (w % 2) .. + 7 and rows 4 (w // 2) .. + 3."""
-    p = torch.arange(PIX)
-    w, lane = p // 32, p % 32
-    return (((w // 2) * 4 + lane // 8) * 16 + (w % 2) * 8 + lane % 8
-            ).reshape(8, 32)
-
-
 def cull_counts(frags, tile_start, draw_len, cutoff_sq: float = Q_CUTOFF,
                 mode: int = 0) -> tuple[int, int]:
     """The (warp, fragment) pairs of the drawn fragments that the pixel-box
     cull of K3 and K4 keeps and skips: a warp keeps a fragment when the
     fragment's box (``frag_pixel_box_plain``) meets its pixels. Returns
     (kept, skipped)."""
-    dev = frags.device
-    lens = draw_len.long()
-    drawn = int(lens.sum())
-    tile_of = torch.repeat_interleave(torch.arange(lens.shape[0], device=dev),
-                                      lens)
-    first = torch.cumsum(lens, 0) - lens
-    slots = (tile_start.long()[tile_of]
-             + torch.arange(drawn, device=dev) - first[tile_of])
+    slots = staged_slots(tile_start, draw_len)
+    drawn = slots.shape[0]
     box = frag_pixel_box_plain(frags[:, slots], cutoff_sq, mode)  # [4, D]
-    pix = warp_pixels().to(dev)
+    pix = warp_pixels().to(frags.device)
     cols, rows = pix % 16, pix // 16
     x0, x1 = cols.amin(dim=1), cols.amax(dim=1)
     y0, y1 = rows.amin(dim=1), rows.amax(dim=1)
@@ -251,32 +245,33 @@ def cull_counts(frags, tile_start, draw_len, cutoff_sq: float = Q_CUTOFF,
 
 def run(frags, tile_start, tile_len, bg, cutoff_sq: float = Q_CUTOFF,
         mode: int = 0, iters: int = 10, warmup: int = 2) -> dict:
-    """Time every level on one stream. Returns ms, us per tile, and the
-    step from the level before, per level."""
+    """Time every level and K3's first design on one stream. Returns, per
+    level, ms, us per tile and the step from the level before (ms)."""
     n_t = tile_start.shape[0]
     result: dict = {"device": device_name(frags.device), "tiles": n_t,
                     "fragments": int(tile_len.sum()), "levels": {}}
+    args = (frags, tile_start, tile_len, bg, cutoff_sq, mode)
     prev = None
     for name in RASTER_LEVELS:
-        sec = block_and_time(name, rasterize_level, name, frags, tile_start,
-                             tile_len, bg, cutoff_sq, mode, iters=iters,
-                             warmup=warmup)
-        ms = sec * 1e3
+        ms = kernel_ms(name, rasterize_level, name, *args, iters=iters,
+                       warmup=warmup)
         result["levels"][name] = {
             "ms": ms, "us_per_tile": ms * 1e3 / n_t,
-            "step_us_per_tile": None if prev is None
-            else (ms - prev) * 1e3 / n_t,
+            "step_ms": None if prev is None else ms - prev,
         }
         prev = ms
+    result["first_design_ms"] = kernel_ms(
+        "rasterize_fwd_first", rasterize_fwd_first, *args, iters=iters,
+        warmup=warmup)
     return result
 
 
 def print_levels(result: dict) -> None:
     for name, r in result["levels"].items():
-        step = ("" if r["step_us_per_tile"] is None
-                else f"  (step {r['step_us_per_tile']:+.4f} us/tile)")
+        step = "" if r["step_ms"] is None else f"  (step {r['step_ms']:+.4f})"
         print(f"{name:>10s}: {r['ms']:8.4f} ms  {r['us_per_tile']:.4f} "
               f"us/tile{step}", flush=True)
+    print(f"first design: {result['first_design_ms']:.4f} ms", flush=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

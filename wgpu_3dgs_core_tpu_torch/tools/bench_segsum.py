@@ -2,29 +2,27 @@
 
 The counterpart of ``tools/bench_segsum.py``, which attributes the TPU
 ``_segsum_kernel``'s cost by removing one ingredient at a time. The port
-asked the same question of K5's first design (one warp per row of the
-compacted gid column, two binary searches, a read through the sort's
-permutation, a fixed-order warp reduction); the levels keep that design
-as its record, beside K5 itself (``csrc/segreduce.cu``, now lanes over the
-sorted slots). Levels, cumulative, in ``csrc/variants.cu`` (wrapped by
-``ops/variants.py``):
+asks it of K5 as it runs (``csrc/segreduce.cu``: a staging kernel, then a
+segmented scan with its lanes over the sorted slots). The levels are
+instantiations of K5's own source (``csrc/segsum.cuh``, wrapped by
+``ops/variants.py``), cumulative:
 
-- ``s0_stream``: each warp sums a fixed run of ``f // rows`` slots of the
-  gradients already in key order: no search, no permutation (the
-  streaming floor);
-- ``s1_search``: adds the two searches for the row's run, still over the
-  key-ordered gradients: the design's summation order, so ``s2_gather``'s
-  output bit for bit;
-- ``s2_gather``: adds the read through the permutation: the first design's
-  K5;
-- ``prod_b128``, ``prod_b512``: ``s2_gather`` at 128 and 512 threads per
-  block.
+- ``s0_prep``: K5's first kernel alone: the slot-major staging copy
+  [9, F] -> [F, 9], the row map, the zeroed output;
+- ``s1_scan``: adds the segmented scan over a slot-major copy already in
+  key order: no gather (the operand is ``grad[:, perm]``, made once outside
+  the timed region by ``ops/variants.py::level_operand``);
+- ``s2_gather``: adds the read through the sort's permutation: K5 itself,
+  bit for bit;
+- ``s2_nostage``: ``s2_gather`` reading [9, F] through the permutation,
+  with no staging copy: its step from ``s2_gather`` prices the copy.
 
-:func:`hard_streams` gives the streams K5's present design finds hard.
+K5's first design (``ops/variants.py::segment_sums_first``: a warp per
+row, two searches, a fixed butterfly) and ``torch.segment_reduce`` over the
+same data, the library's yardstick, are timed beside them. On a card every
+time is device time (torch.profiler, ``utils/profiling.py::kernel_ms``).
 
-Levels 0-1 read ``grad[:, perm]``, made once outside the timed region
-(``ops/variants.py::level_operand``). ``torch.segment_reduce`` over the
-same data is timed beside them as the library's yardstick.
+:func:`hard_streams` gives the streams K5's design finds hard.
 
     python -m wgpu_3dgs_core_tpu_torch.tools.bench_segsum \\
         [--f-pad 3955712] [--gaussians 1000000] [--seed 0] [--device cuda]
@@ -47,9 +45,10 @@ from ..ops.segreduce import GRAD_ROWS, SEGSUM_CHUNK
 from ..ops.variants import (
     SEGSUM_LEVELS,
     level_operand,
+    segment_sums_first,
     segment_sums_level,
 )
-from ..utils.profiling import block_and_time, device_name
+from ..utils.profiling import device_name, kernel_ms
 
 
 def synthetic_stream(f_pad: int, n: int, seed: int = 0, device="cuda"):
@@ -156,37 +155,39 @@ def segment_reduce_call(keys, perm, grad, gid_col, n: int):
 
 def run(keys, perm, grad, gid_col, n: int, iters: int = 10,
         warmup: int = 2) -> dict:
-    """Time every level (and ``segment_reduce``) on one stream. Returns ms,
-    us per row, and the step from the level before, per level."""
+    """Time every level, K5's first design and ``segment_reduce`` on one
+    stream. Returns, per level, ms, us per row and the step from the level
+    before (ms)."""
     rows = gid_col.shape[0]
     result: dict = {"device": device_name(grad.device), "f": keys.shape[0],
                     "rows": rows, "levels": {}}
     prev = None
     for name in SEGSUM_LEVELS:
         operand = level_operand(name, grad, perm)
-        sec = block_and_time(name, segment_sums_level, name, keys, perm,
-                             operand, gid_col, n, iters=iters, warmup=warmup)
-        ms = sec * 1e3
+        ms = kernel_ms(name, segment_sums_level, name, keys, perm, operand,
+                       gid_col, n, iters=iters, warmup=warmup)
         result["levels"][name] = {
             "ms": ms, "us_per_row": ms * 1e3 / rows,
-            "step_us_per_row": None if prev is None
-            else (ms - prev) * 1e3 / rows,
+            "step_ms": None if prev is None else ms - prev,
         }
-        if name in ("s0_stream", "s1_search", "s2_gather"):
-            prev = ms
+        prev = ms
+    result["first_design_ms"] = kernel_ms(
+        "segment_sums_first", segment_sums_first, keys, perm, grad, gid_col,
+        n, iters=iters, warmup=warmup)
     lib = segment_reduce_call(keys, perm, grad, gid_col, n)
-    result["segment_reduce_ms"] = block_and_time(
-        "segment_reduce", lib, iters=iters, warmup=warmup) * 1e3
+    result["segment_reduce_ms"] = kernel_ms("segment_reduce", lib,
+                                            iters=iters, warmup=warmup)
     return result
 
 
 def print_levels(result: dict) -> None:
     for name, r in result["levels"].items():
-        step = ("" if r["step_us_per_row"] is None
-                else f"  (step {r['step_us_per_row']:+.5f} us/row)")
+        step = "" if r["step_ms"] is None else f"  (step {r['step_ms']:+.4f})"
         print(f"{name:>10s}: {r['ms']:8.4f} ms  {r['us_per_row']:.5f} us/row"
               f"{step}", flush=True)
-    print(f"segment_reduce: {result['segment_reduce_ms']:.4f} ms", flush=True)
+    print(f"first design: {result['first_design_ms']:.4f} ms; "
+          f"segment_reduce: {result['segment_reduce_ms']:.4f} ms",
+          flush=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -235,6 +235,24 @@ def device_kernel_ms(fn, *args, iters: int = 10, **kwargs) -> float:
         for call in device_calls(fn, *args, iters=iters, **kwargs)) / 1e3
 
 
+def kernel_ms(label: str, fn, *args, iters: int = 10, warmup: int = 2,
+              **kwargs) -> float:
+    """Milliseconds a call of ``fn``: where its output lies on a card, its
+    device time (device_kernel_ms, after ``warmup`` calls); otherwise the
+    host's clock (block_and_time)."""
+    out = None
+    for _ in range(max(warmup, 1)):
+        out = fn(*args, **kwargs)
+    t = _first_tensor(out)
+    if t is not None and t.device.type == "cuda":
+        with torch.cuda.device(t.device):
+            ms = device_kernel_ms(fn, *args, iters=iters, **kwargs)
+        log.info("%s: %.4f device ms", label, ms)
+        return ms
+    return block_and_time(label, fn, *args, iters=iters, warmup=0,
+                          **kwargs) * 1e3
+
+
 def _first_tensor(out: Any) -> Optional[torch.Tensor]:
     if isinstance(out, torch.Tensor):
         return out
