@@ -162,7 +162,16 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     bench_bin's (counts to ranges) never decreasing; the step stage's
     device ms and operations printed beside phase 9's (a record: phase 9
     profiles this script's own scene, u8 colour and opacity at measured
-    capacities).
+    capacities);
+24. the measurement tools on data: tools/bench_sort_shapes.py,
+    bench_irregular_ops.py, bench_reorder.py and bench_reorder2.py in
+    this process at the JAX tools' sizes, 10 calls a reading, each
+    printing a line per stage and its JSON line; every stage on the card
+    with at least one device operation; then tools/scaling_efficiency.py
+    at its defaults (65,536 gaussians, 512x512) with 3 timed steps: the
+    plain step, the D=8 route build, and NCCL ranks spawned one a card
+    (D=1 on this run's one card), which must give efficiency_1dev 1, a
+    finite sharding_overhead_1dev and K1-K6 launched on every rank.
 
 Then a JSON line of the kernels (launches on the training step, for K7 and
 K8 on phases 11-12, for K9-K11 on the tools' runs of phases 13-15; errors;
@@ -277,13 +286,18 @@ from wgpu_3dgs_core_tpu_torch.render.renderer import (  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.tools import (  # noqa: E402
     bench_bin,
     bench_bwd,
+    bench_irregular_ops,
     bench_kernel_variants as k9,
     bench_nscale,
+    bench_reorder,
+    bench_reorder2,
     bench_segsum as k10,
+    bench_sort_shapes,
     expand_tables,
     grad_parity,
     probe_dyngrid as k11,
     profile_components,
+    scaling_efficiency,
 )
 from wgpu_3dgs_core_tpu_torch.tools.stages import (  # noqa: E402
     FORWARD_PREFIX,
@@ -2425,6 +2439,72 @@ def phase_tools(step_profile, card: str):
           f"glue_bwd {glue['device_ms']:.3f} ms; {card}", flush=True)
 
 
+# Phase 24: the four synthetic measurement tools at the JAX tools' sizes,
+# 10 calls a reading (late in this process the profiler loses marker
+# kernels: with 3 calls a reading one lost marker can leave no two calls
+# alike in all three sessions, as it did for segment_sum9), and the
+# scaling tool at its defaults with 3 timed steps. Each tool's inputs are
+# freed when its main returns.
+DATA_TOOLS = (
+    ("bench_sort_shapes", bench_sort_shapes.main),
+    ("bench_irregular_ops", bench_irregular_ops.main),
+    ("bench_reorder", bench_reorder.main),
+    ("bench_reorder2", bench_reorder2.main),
+)
+DATA_TOOL_ARGS = ["--iters", "10"]
+SCALING_ARGS = ["--iters", "3"]
+
+
+def phase_data_tools(card: str):
+    """Phase 24 (see the module's docstring)."""
+    t0 = time.perf_counter()
+    runs, seconds = {}, {}
+    for tool, main in DATA_TOOLS:
+        t = time.perf_counter()
+        runs[tool] = main(DATA_TOOL_ARGS)
+        seconds[tool] = time.perf_counter() - t
+    name = torch.cuda.get_device_name(0)
+    for tool, out in runs.items():
+        if out["device"] != name:
+            fail(f"{tool} ran on {out['device']}, not {name}")
+        for stage, r in out["stages"].items():
+            if r["ops"] < 1:
+                fail(f"{tool} {stage!r} ran no device operation")
+    t = time.perf_counter()
+    sc = scaling_efficiency.main(SCALING_ARGS)
+    seconds["scaling_efficiency"] = time.perf_counter() - t
+    if sc["device"] != name:
+        fail(f"scaling_efficiency ran on {sc['device']}, not {name}")
+    if sc["efficiency_1dev"] != 1.0:
+        fail(f"scaling_efficiency: efficiency_1dev "
+             f"{sc['efficiency_1dev']}, not 1")
+    if not np.isfinite(sc["sharding_overhead_1dev"]):
+        fail(f"scaling_efficiency: sharding_overhead_1dev "
+             f"{sc['sharding_overhead_1dev']}")
+    for d, ranks in sc["launches"].items():
+        for rank, got in enumerate(ranks):
+            missing = [k for k in RENDER_KERNELS if got.get(k, 0) < 1]
+            if missing:
+                fail(f"scaling_efficiency D={d} rank {rank} did not launch "
+                     f"{missing}: {got}")
+    stages = [r for out in runs.values() for r in out["stages"].values()]
+    sizes = sorted(int(d) for d in sc["launches"])
+    print(f"phase 24 measurement tools ({len(runs) + 1} runs, "
+          f"{len(stages)} stages, {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"): every stage on the card with device operations (fewest "
+          f"{min(r['ops'] for r in stages)}), profiler sessions "
+          f"{sum(r['profiler_sessions'] for r in stages)} for "
+          f"{len(stages)} stages; scaling ({sc['backend']}, D "
+          f"{sizes}): plain step {sc['plain_1dev_ms']:.3f} ms, sharded D=1 "
+          f"{sc['sharded_1dev_ms']:.3f} ms, overhead "
+          f"{sc['sharding_overhead_1dev']:.4f}, route build (D=8) "
+          f"{sc['route_build_8dst_ms']:.3f} ms, efficiency "
+          + ", ".join(f"D={d} {sc[f'efficiency_{d}dev']:.4f}"
+                      for d in sizes)
+          + f", K1-K6 launched on every rank; {card}", flush=True)
+
+
 FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
 RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
                                     "uncompact")
@@ -2516,9 +2596,12 @@ def run(device: torch.device, card: str):
     t22 = time.perf_counter()
     phase_tools(step_profile, card)
     t23 = time.perf_counter()
+    phase_data_tools(card)
+    t24 = time.perf_counter()
     print(f"wall time: phases 1-12 {t12 - t0:.1f} s, phases 13-19 "
           f"{t19 - t12:.1f} s, phases 20-21 {t21 - t19:.1f} s, phase 22 "
-          f"{t22 - t21:.1f} s, phase 23 {t23 - t22:.1f} s; "
+          f"{t22 - t21:.1f} s, phase 23 {t23 - t22:.1f} s, phase 24 "
+          f"{t24 - t23:.1f} s; "
           f"torch.profiler: "
           + ", ".join(f"{k} {v}" for k, v in PROFILER_STATS.items()),
           flush=True)

@@ -1,11 +1,13 @@
-"""What the four attribution tools share: the bench setup, the forward
+"""What the stage-reading tools share: the bench setup, the forward
 prefix of the bench step, and the reading of stages on the card.
 
-The tools (``profile_components``, ``bench_bin``, ``bench_bwd``,
-``bench_nscale``) each build a dict of stages: callables of no argument,
-each returning its output, that run on any device (the CPU tests call
-them). Their ``main`` reads the stages on a CUDA card only, through
-:func:`read_stages`:
+The tools (the attribution tools ``profile_components``, ``bench_bin``,
+``bench_bwd``, ``bench_nscale``, on the bench setup, and the tools on
+drawn data ``bench_sort_shapes``, ``bench_irregular_ops``,
+``bench_reorder``, ``bench_reorder2``) each build a dict of stages:
+callables of no argument, each returning its output, that run on any
+device (the CPU tests call them). Their ``main`` reads the stages on a
+CUDA card only, through :func:`read_stages`:
 
 - **device ms**: the median, over ``iters`` back-to-back calls, of each
   call's device operations summed (``utils/profiling.py::device_calls``),
