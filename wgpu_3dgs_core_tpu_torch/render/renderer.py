@@ -10,6 +10,12 @@ binned rasterization (:class:`BinRasterize`, the counterpart of the JAX
 (ops/segreduce.py), and autograd carries the result through the plain
 torch projection, SH and parameterization. Everything between the kernels
 is plain torch on the inputs' device.
+
+Each stage runs in a named scope (``utils/profiling.py``): ``render.unpack``,
+``render.project``, ``render.bin``, ``render.raster``, and in the backward
+``render.bin_bwd`` with ``render.reorder`` inside it. The binned
+rasterization counts its stream's fragments, its capacity and its overflow
+flag into the open counting session, if any.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from ..ops.transforms import (
     unpack_cov3d,
     unpack_sh,
 )
+from ..utils.profiling import count, named_scope
 from .camera import Camera
 from .reference import point_conic, view_dirs
 
@@ -229,16 +236,22 @@ class BinRasterize(torch.autograd.Function):
                 tiles_y: int, f_cap: int, background: tuple,
                 cutoff_sq: float, mode: int, pad_slack: float, max_rows):
         f_pad_cap = padded_capacity(f_cap, tiles_x * tiles_y, pad_slack)
-        stream, attrs_sorted, table = bin_splats_attrs(
-            xy, extent, depth, mask, attr_cols, tiles_x, tiles_y, f_cap,
-            max_rows=max_rows, cutoff_sq=cutoff_sq,
-            opacity_cull=mode != 1,
-        )
-        sched = pad_schedule(stream, f_pad_cap)
-        frags = tile_local_stream(attrs_sorted, stream.tile_id, tiles_x)
-        tiles = rasterize_tiles_fwd(frags, stream.tile_start, sched.draw_len,
-                                    background, cutoff_sq, mode)
+        with named_scope("render.bin"):
+            stream, attrs_sorted, table = bin_splats_attrs(
+                xy, extent, depth, mask, attr_cols, tiles_x, tiles_y, f_cap,
+                max_rows=max_rows, cutoff_sq=cutoff_sq,
+                opacity_cull=mode != 1,
+            )
+            sched = pad_schedule(stream, f_pad_cap)
+            frags = tile_local_stream(attrs_sorted, stream.tile_id, tiles_x)
+        with named_scope("render.raster"):
+            tiles = rasterize_tiles_fwd(frags, stream.tile_start,
+                                        sched.draw_len, background,
+                                        cutoff_sq, mode)
         overflow = stream.overflow | sched.truncated
+        count("fragments", stream.num_fragments)
+        count("capacity", f_cap)
+        count("overflow", overflow)
         ctx.save_for_backward(frags, stream.gauss_id, stream.tile_id,
                               stream.tile_start, sched.tile_len,
                               sched.draw_len, table.ints, tiles, overflow)
@@ -251,11 +264,13 @@ class BinRasterize(torch.autograd.Function):
         (frags, gauss_id, tile_id, tile_start, tile_len, draw_len, tab_ints,
          tiles, overflow) = ctx.saved_tensors
         background, cutoff_sq, mode = ctx.args
-        dfrag = rasterize_tiles_bwd(frags, tile_start, tile_len, draw_len,
-                                    tiles, d_tiles.contiguous(), background,
-                                    cutoff_sq, mode)
-        d_cols = reorder_grads(dfrag, gauss_id, tile_id, tile_start,
-                               draw_len, tab_ints, overflow)
+        with named_scope("render.bin_bwd"):
+            dfrag = rasterize_tiles_bwd(frags, tile_start, tile_len,
+                                        draw_len, tiles, d_tiles.contiguous(),
+                                        background, cutoff_sq, mode)
+            with named_scope("render.reorder"):
+                d_cols = reorder_grads(dfrag, gauss_id, tile_id, tile_start,
+                                       draw_len, tab_ints, overflow)
         return (d_cols,) + (None,) * 12
 
 
@@ -271,13 +286,15 @@ def rasterize_splats(xy, depth, conic, extent, mask, rgb, opacity,
     schedule does not draw to the background. Differentiable in ``xy``,
     ``conic``, ``rgb`` and ``opacity`` (:class:`BinRasterize`).
     """
-    attr_cols = attribute_columns(xy, conic, rgb, opacity, mask)
+    with named_scope("render.bin"):
+        attr_cols = attribute_columns(xy, conic, rgb, opacity, mask)
     tiles, written, overflow = BinRasterize.apply(
         attr_cols, xy.detach(), extent.detach(), depth.detach(), mask,
         tiles_x, tiles_y, f_cap, background, cutoff_sq, mode, pad_slack,
         max_rows,
     )
-    return composite_tiles(tiles, written, background), overflow
+    with named_scope("render.raster"):
+        return composite_tiles(tiles, written, background), overflow
 
 
 def render(
@@ -315,20 +332,22 @@ def render(
         max_fragments = default_max_fragments(n, tiles_x, tiles_y)
     f_cap = -(-max_fragments // CHUNK) * CHUNK  # whole blocks
 
-    splats, rgb, opacity = project_and_color(
-        means, cov3d_sigma6, base_color, opacity, camera,
-        sh=sh, sh_deg=sh_deg, no_sh0=no_sh0,
-        model_transform=model_transform, size=size,
-        max_std_dev=max_std_dev, display_mode=display_mode,
-        antialiased=antialiased,
-    )
+    with named_scope("render.project"):
+        splats, rgb, opacity = project_and_color(
+            means, cov3d_sigma6, base_color, opacity, camera,
+            sh=sh, sh_deg=sh_deg, no_sh0=no_sh0,
+            model_transform=model_transform, size=size,
+            max_std_dev=max_std_dev, display_mode=display_mode,
+            antialiased=antialiased,
+        )
     tiles, overflow = rasterize_splats(
         splats.xy, splats.depth, splats.conic, splats.extent, splats.mask,
         rgb, opacity, tiles_x, tiles_y, f_cap, tuple(background),
         cutoff_sq=float(max_std_dev) ** 2, mode=int(display_mode),
         pad_slack=pad_slack, max_rows=max_rows,
     )
-    img = tiles_to_image(tiles, tiles_x, tiles_y, w_px, h)
+    with named_scope("render.raster"):
+        img = tiles_to_image(tiles, tiles_x, tiles_y, w_px, h)
     return RenderResult(
         image=img[..., 0:3],
         transmittance=img[..., 3],
@@ -368,7 +387,8 @@ def render_gaussians(
             "render_gaussians expects a GaussiansBuffer or PackedGaussians; "
             "convert a GaussianSoA with GaussiansBuffer.new first"
         )
-    means, cov3d6, color, opacity, sh = unpack_gaussians(packed)
+    with named_scope("render.unpack"):
+        means, cov3d6, color, opacity, sh = unpack_gaussians(packed)
     # The model matrix enters the projection as Python floats.
     mt = (None if model_transform is None
           else model_transform.as_tensors("cpu"))

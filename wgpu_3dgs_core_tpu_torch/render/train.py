@@ -20,6 +20,7 @@ from torch import nn
 
 from ..models.gaussian import GaussianSoA
 from ..ops.transforms import cov3d_from_rot_scale
+from ..utils.profiling import named_scope
 from .camera import Camera
 from .renderer import measure_capacities, render
 
@@ -118,14 +119,21 @@ def make_train_step(
     """
 
     def step(params: TrainableGaussians):
-        optimizer.zero_grad(set_to_none=True)
-        means, cov6, color, opacity, sh = params.constrained()
-        res = render(means, cov6, color, opacity, camera, sh=sh,
-                     sh_deg=sh_deg, background=background, **render_kw)
-        loss = loss_fn(res.image, target)
-        loss.backward()
-        optimizer.step()
-        return loss.detach(), res.overflow
+        # The step's own time (outside its stages) is the loss and the
+        # autograd backward through the attribute columns, SH, projection
+        # and constrained().
+        with named_scope("train.step"):
+            with named_scope("train.adam"):
+                optimizer.zero_grad(set_to_none=True)
+            with named_scope("train.constrain"):
+                means, cov6, color, opacity, sh = params.constrained()
+            res = render(means, cov6, color, opacity, camera, sh=sh,
+                         sh_deg=sh_deg, background=background, **render_kw)
+            loss = loss_fn(res.image, target)
+            loss.backward()
+            with named_scope("train.adam"):
+                optimizer.step()
+            return loss.detach(), res.overflow
 
     return step
 

@@ -56,8 +56,16 @@ KERNEL_KINDS = (
 )
 
 
+# What a scope is while no profiler records: one shared context that does
+# nothing (a record_function costs a dispatcher round trip even then).
+_NO_SCOPE = contextlib.nullcontext()
+
+
 def named_scope(name: str):
-    """Label a region of host work and the kernels it launches."""
+    """Label a region of host work and the kernels it launches; the
+    shared null context while no profiler records."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SCOPE
     return record_function(name)
 
 
@@ -69,12 +77,63 @@ def annotate(name: Optional[str] = None):
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            with record_function(label):
+            with named_scope(label):
                 return fn(*args, **kwargs)
 
         return wrapper
 
     return deco
+
+
+class Counts:
+    """The values :func:`count` recorded in one :func:`counting` session,
+    in call order: (name, 0-d tensor or host number)."""
+
+    def __init__(self):
+        self.values: list = []
+
+    def totals(self) -> tuple[dict, dict]:
+        """({name: sum}, {name: calls}). The device values are stacked and
+        read once (one sync per device); nothing is read before."""
+        sums: dict = collections.defaultdict(int)
+        calls: collections.Counter = collections.Counter()
+        on_device: dict = collections.defaultdict(list)
+        for name, v in self.values:
+            calls[name] += 1
+            if isinstance(v, torch.Tensor):
+                on_device[v.device].append((name, v))
+            else:
+                sums[name] += v
+        for pairs in on_device.values():
+            read = torch.stack([v.reshape(()).double()
+                                for _, v in pairs]).tolist()
+            for (name, v), x in zip(pairs, read):
+                sums[name] += x if v.is_floating_point() else int(x)
+        return dict(sums), dict(calls)
+
+
+# The open counting session, if any.
+_COUNTS: Optional[Counts] = None
+
+
+@contextlib.contextmanager
+def counting() -> Iterator[Counts]:
+    """Open a session that keeps what :func:`count` records in the block;
+    yields its :class:`Counts`. Kept in memory only."""
+    global _COUNTS
+    outer, _COUNTS = _COUNTS, Counts()
+    try:
+        yield _COUNTS
+    finally:
+        _COUNTS = outer
+
+
+def count(name: str, value) -> None:
+    """Record ``value`` (a 0-d tensor the program already computed, or a
+    host number) under ``name`` in the open session; without one, nothing.
+    Launches no kernel and never syncs."""
+    if _COUNTS is not None:
+        _COUNTS.values.append((name, value))
 
 
 @contextlib.contextmanager
@@ -157,8 +216,11 @@ def _profiled_session(fn, args, kwargs, iters: int) -> list:
         torch.cuda._sleep(1)
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
+    # A named scope the profiler projects onto the device's timeline is no
+    # device operation.
     ops = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
                  key=lambda e: e.time_range.start)
     PROFILER_STATS["sessions"] += 1
     PROFILER_STATS["markers lost"] += (PROFILE_LEAD + iters + 1
