@@ -43,14 +43,26 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    gradient;
 8. the training step on the bench scene: forward + backward of mean(
    image^2) w.r.t. (means, cov3d, colour, opacity, sh), checked (no
-   overflow, finite gradients, all six kernels launched on that path) and
-   timed beside the forward; three Adam steps of make_train_step on
+   overflow, finite gradients, K1-K6 and K12's two kernels launched on
+   that path) and timed beside the forward; three Adam steps of make_train_step on
    TrainableGaussians at the same size; each backward kernel held against
    its plain version and timed as in phase 4 and, for K5 and K6, beside
    the device time of the one PyTorch call that computes the same
    function (segment_reduce; torch.zeros + index_copy_); K4 within 1e-4 of
    its first design (ops/variants.py::rasterize_bwd_first) on the bench
-   stream and the hard tiles;
+   stream and the hard tiles; K12, the SH colour's forward and backward
+   kernels (csrc/sh.cu), on the bench scene's colour, sh and means at
+   sh_deg 3 with a random cotangent: the forward bit for bit its plain
+   version; the backward's d_base bit for bit the closed form's
+   (ops/sh.py::sh_color_bwd_plain), its d_sh within 1e-4 of each
+   gaussian's largest value of the closed form in float64, and its
+   d_means within the larger of 1e-4 and twice the float32 closed form's
+   own worst error there (where a gaussian's gradient is nearly radial
+   the tangential projection cancels, and float32 misses by up to ~2e-4
+   a million gaussians), over the gaussians whose colour lies on the
+   same side of the 0 clamp in both precisions (the kernel takes that
+   gate from its float32 colour, the forward's bits); each timed as in
+   phase 4 beside its plain version;
 9. the profile of phase 5 for the training step;
 10. K8, the kernel-bundle launcher, at mid size (66,773 items, a ragged
     tail): every bundle shape of tests/test_kernel_bundle.py (map_add,
@@ -257,6 +269,7 @@ from wgpu_3dgs_core_tpu_torch.ops.kernel_bundle import (  # noqa: E402
 )
 from wgpu_3dgs_core_tpu_torch.ops import rasterize as ra  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops import segreduce as sr  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.ops import sh as shc  # noqa: E402
 from wgpu_3dgs_core_tpu_torch.ops.transforms import (  # noqa: E402
     cov3d_from_rot_scale,
     unpack_color,
@@ -277,7 +290,10 @@ from wgpu_3dgs_core_tpu_torch.ops.binning import (  # noqa: E402
     row_capacity,
     row_table,
 )
-from wgpu_3dgs_core_tpu_torch.ops.projection import project  # noqa: E402
+from wgpu_3dgs_core_tpu_torch.ops.projection import (  # noqa: E402
+    camera_position,
+    project,
+)
 from wgpu_3dgs_core_tpu_torch.render.renderer import (  # noqa: E402
     project_and_color,
     tile_local_stream,
@@ -754,7 +770,8 @@ def phase_full(device, errs, scene):
     res = forward()
     torch.cuda.synchronize(device)
     launches = launch_counts()
-    ran = {k: v for k, v in launches.items() if k in FORWARD_KERNELS}
+    ran = {k: v for k, v in launches.items()
+           if k in FORWARD_KERNELS + SH_KERNELS[:1]}
     if min(ran.values()) < 1:
         fail(f"a kernel of the forward path did not run: {launches}")
     if bool(res.overflow):
@@ -1097,7 +1114,7 @@ def phase_train(device, scene, inp, fwd_ms, errs):
     res, loss, grads = step()
     torch.cuda.synchronize(device)
     launches = {k: v for k, v in launch_counts().items()
-                if k in RENDER_KERNELS}
+                if k in RENDER_KERNELS + SH_KERNELS}
     if min(launches.values()) < 1:
         fail(f"a kernel of the training step did not run: {launches}")
     if bool(res.overflow):
@@ -1170,6 +1187,68 @@ def phase_train(device, scene, inp, fwd_ms, errs):
                       for k, (a, b, c, d) in ms.items()),
           flush=True)
     return launches, ms, errs, lambda: step()[2], bi
+
+
+def phase_sh_color(scene):
+    """K12 on the bench scene's own colour, sh and means (see phase 8 in
+    the module's docstring). Returns the max abs errors, the times and the
+    bounds: 216 B a gaussian forward (means, base and sh read, rgb
+    written) and 420 B backward (the same and d_rgb read; d_base, d_sh and
+    d_means written); its few hundred flops a gaussian take far less."""
+    _, _, cam, args, _ = scene
+    means, _, color, _, sh = args
+    n = means.shape[0]
+    gen = torch.Generator(device=means.device).manual_seed(12)
+    d_rgb = torch.randn((n, 3), generator=gen, device=means.device)
+    fwd = (color, sh, means, camera_position(cam), 3, False)
+    bwd = fwd + (d_rgb,)
+    rgb, want = shc.sh_color_fwd(*fwd), shc.sh_color_plain(*fwd)
+    if not torch.equal(bits(rgb), bits(want)):
+        fail("K12 sh_color_fwd differs from its plain version")
+    got, ref = shc.sh_color_bwd(*bwd), shc.sh_color_bwd_plain(*bwd)
+    if not all(torch.isfinite(g).all() for g in got):
+        fail("K12 sh_color_bwd output is not finite")
+    if not torch.equal(bits(got[0]), bits(ref[0])):
+        fail("K12 sh_color_bwd's d_base differs from the closed form")
+    wide = [t.double() for t in (color, sh, means, d_rgb)]
+    truth = shc.sh_color_bwd_plain(*wide[:3], *fwd[3:], wide[3])
+    # The gaussians whose colour gate (unclamped colour >= 0) is the same
+    # in float32 and float64.
+    gates = [c + shc.eval_sh(s, shc.view_dirs_from(m, fwd[3]), 3) >= 0.0
+             for c, s, m in ((color, sh, means), wide[:3])]
+    same = (gates[0] == gates[1]).all(-1)
+
+    def errs_64(grads):  # (d_sh, d_means) against the float64 closed form
+        return [normalized_err(g.reshape(n, -1)[same].double(),
+                               t.reshape(n, -1)[same])
+                for g, t in zip(grads[1:], truth[1:])]
+
+    (n_sh, n_means), (p_sh, p_means) = errs_64(got), errs_64(ref)
+    means_tol = max(GRAD_TOL, 2 * p_means)
+    if not (n_sh <= GRAD_TOL and n_means <= means_tol):
+        fail(f"K12 sh_color_bwd differs from the float64 closed form by "
+             f"{n_sh} (d_sh), {n_means} (d_means; the float32 closed form "
+             f"by {p_means})")
+    errs = {"sh_color_fwd": 0.0,
+            "sh_color_bwd": max(float((g - r).abs().max())
+                                for g, r in zip(got, ref))}
+    ms = {"sh_color_fwd": kernel_times(lambda: shc.sh_color_fwd(*fwd),
+                                       lambda: shc.sh_color_plain(*fwd)),
+          "sh_color_bwd": kernel_times(lambda: shc.sh_color_bwd(*bwd),
+                                       lambda: shc.sh_color_bwd_plain(*bwd))}
+    bounds = {"sh_color_fwd": bound(216 * n, 0),
+              "sh_color_bwd": bound(420 * n, 0)}
+    print(f"phase 8 K12 ({n} gaussians, sh_deg 3): sh_color_fwd bit for "
+          f"bit its plain version; sh_color_bwd d_base bit for bit, against "
+          f"the float64 closed form d_sh normalized err {n_sh:.3g} (tol "
+          f"{GRAD_TOL}; float32 closed form {p_sh:.3g}), d_means "
+          f"{n_means:.3g} (tol {means_tol:.3g}; float32 closed form "
+          f"{p_means:.3g}; {n - int(same.sum())} gaussians gated "
+          f"otherwise in float64 left out); device/call/plain ms, bound ms "
+          + ", ".join(f"{k} {t[0]:.4f}/{t[3]:.4f}/{t[1]:.3f}, "
+                      f"{bounds[k][0]:.4f} ({bounds[k][0] / t[0]:.0%})"
+                      for k, t in ms.items()), flush=True)
+    return errs, ms, bounds
 
 
 # ------------------------------------------------ phases 10-12: K8, K7
@@ -2508,6 +2587,7 @@ def phase_data_tools(card: str):
 FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
 RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
                                     "uncompact")
+SH_KERNELS = ("sh_color_fwd", "sh_color_bwd")  # K12, with SH only
 TOOL_KERNELS = {
     "bin": FORWARD_KERNELS[:2],
     "gather": ("rasterize_fwd",),
@@ -2541,6 +2621,8 @@ KERNELS = (
      "tools/bench_segsum.py:92"),
     ("probe_dyngrid", "wgpu_3dgs_core_tpu_torch/csrc/probe_dyngrid.cu",
      "tools/probe_dyngrid.py:17"),
+    ("sh_color_fwd", "wgpu_3dgs_core_tpu_torch/csrc/sh.cu", None),
+    ("sh_color_bwd", "wgpu_3dgs_core_tpu_torch/csrc/sh.cu", None),
 )
 
 
@@ -2559,14 +2641,17 @@ def run(device: torch.device, card: str):
     launches, ms_bwd, errs, train_step, bi = phase_train(device, scene, inp,
                                                          fwd_ms, errs)
     ms.update(ms_bwd)
+    errs_sh, ms_sh, bounds_sh = phase_sh_color(scene)
+    ms.update(ms_sh)
     step_profile = phase_profile(train_step, "9", "training step")
     bounds, counts = kernel_bounds(inp, bi)
+    bounds.update(bounds_sh)
     print(f"bounds (H100 SXM: {HBM_BYTES_S:.3g} B/s, {FP32_FLOPS_S:.3g} "
           f"FP32 flop/s): {counts['drawn']} drawn fragments, "
           f"{counts['evaluated']} evaluated and {counts['blended']} blended "
           f"(fragment, pixel) pairs, {counts['n_live']} gaussians with "
           f"fragments", flush=True)
-    errs = dict(zip(RENDER_KERNELS, errs))
+    errs = dict(zip(RENDER_KERNELS, errs), **errs_sh)
     errs["kernel_bundle"] = phase_bundles(cases)
     (launches["kernel_bundle"], err8, ms["kernel_bundle"],
      bounds["kernel_bundle"]) = phase_core(device, scene[0])

@@ -214,7 +214,8 @@ def test_render_on_card_matches_cpu_and_counts_launches(cuda):
                                  "rasterize_bwd_first": 0,
                                  "segment_sums_first": 0,
                                  "expand_fragments_bbox_first": 0,
-                                 "kernel_bundle_first": 0}
+                                 "kernel_bundle_first": 0,
+                                 "sh_color_fwd": 0, "sh_color_bwd": 0}
     ref = T.render(*(a.cpu() for a in args), CAM, background=BG)
     assert not bool(res.overflow) and not bool(ref.overflow)
     err = float((res.image.cpu() - ref.image).abs().max())

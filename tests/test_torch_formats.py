@@ -165,7 +165,8 @@ def test_cpu_render_launches_no_kernel():
                            "probe_dyngrid", "rasterize_fwd_first",
                            "rasterize_bwd_first", "segment_sums_first",
                            "expand_fragments_bbox_first",
-                           "kernel_bundle_first"}
+                           "kernel_bundle_first", "sh_color_fwd",
+                           "sh_color_bwd"}
     assert not any(counts.values()), counts
 
 

@@ -52,7 +52,7 @@ N, W, H = 2000, 160, 96
 PAD_SLACK, SH_DEG = 0.65, 3
 NSCALE_TOL = 1e-5  # normalized by each parameter's largest gradient
 # The renderer's functions recorded as the step calls them.
-RECORDED = ("project_splats", "gaussian_color", "attribute_columns",
+RECORDED = ("project_splats", "sh_color", "attribute_columns",
             "bin_splats_attrs", "pad_schedule", "tile_local_stream",
             "rasterize_tiles_fwd", "reorder_grads")
 
@@ -112,7 +112,7 @@ def test_prefix_stage_is_render_pieces(tool_stages, recorded_step, stage):
           "project_splats")
     if stage == "project":
         return
-    _same(out["rgb"], seen["gaussian_color"], "rgb")
+    _same(out["rgb"], seen["sh_color"], "rgb")
     _same(out["attr_cols"], seen["attribute_columns"].detach(), "attr_cols")
     if stage == "color":
         return
@@ -212,9 +212,10 @@ def test_nscale_matches_jax_grad(setup):
 
 
 def test_bench_nscale_pieces(setup):
-    """The attribute-major SH colour's gradients are the port layout's
-    (1e-5 normalized); table_bwd(all) is bench_bwd's nscale; proj_bwd
-    gives finite gradients of means and cov6."""
+    """The attribute-major SH colour's gradients and the closed form's
+    (sh_bwd(plain)) are the port layout's (1e-5 normalized), sh_color's
+    (on the CPU the same graph) bit for bit; table_bwd(all) is bench_bwd's
+    nscale; proj_bwd gives finite gradients of means and cov6."""
     params, cam, _ = setup
     st = bench_nscale.stages(params, cam, SH_DEG)
     by_row = st["sh_bwd[N,15,3]"]()
@@ -223,6 +224,11 @@ def test_bench_nscale_pieces(setup):
         want = nn(a).reshape(N, -1)
         err = np.abs(nn(b).T - want).max() / np.abs(want).max()
         assert err <= NSCALE_TOL, err
+    _same(st["sh_bwd(kernel)"](), by_row, "sh_bwd(kernel)")
+    for a, b in zip(by_row, st["sh_bwd(plain)"]()):
+        err = np.abs(nn(b) - nn(a)).max() / np.abs(nn(a)).max()
+        assert err <= NSCALE_TOL, err
+    assert st["sh_fwd(kernel)"]().shape == (N, 3)
     _same(st["table_bwd(all)"](), bench_bwd.nscale(params, cam, SH_DEG),
           "table_bwd")
     g_means, g_cov = st["proj_bwd"]()

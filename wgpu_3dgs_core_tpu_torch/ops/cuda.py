@@ -40,7 +40,9 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("expand.cu", "rasterize.cu", "segreduce.cu", "variants.cu")
+SOURCES = (
+    "expand.cu", "rasterize.cu", "segreduce.cu", "sh.cu", "variants.cu",
+)
 HEADERS = ("common.cuh", "blend.cuh", "rasterize_fwd.cuh", "segsum.cuh")
 BUNDLE_HEADERS = ("common.cuh", "bundle.cuh", "gaussian.cuh")
 BUNDLE_DIR = BUILD_DIR / "bundles"

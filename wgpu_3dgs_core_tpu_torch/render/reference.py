@@ -20,17 +20,14 @@ import torch
 
 from ..ops.projection import camera_position, project
 from ..ops.rasterize import ALPHA_CLAMP, ALPHA_MIN, ELLIPSE_RING, blend_weights
-from ..ops.sh import gaussian_color
-from ..ops.transforms import device_constant, split_last
+from ..ops.sh import gaussian_color, view_dirs_from
+from ..ops.transforms import device_constant
 from .camera import Camera
 
 
 def view_dirs(means: torch.Tensor, camera: Camera) -> torch.Tensor:
     """Unit directions [N, 3] from the camera centre to each gaussian."""
-    d = [m - c for m, c in zip(split_last(means), camera_position(camera))]
-    norm = torch.clamp_min(torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]),
-                           1e-12)
-    return torch.stack([di / norm for di in d], dim=-1)
+    return view_dirs_from(means, camera_position(camera))
 
 
 class _PointConic(torch.autograd.Function):

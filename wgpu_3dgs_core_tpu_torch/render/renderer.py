@@ -3,13 +3,14 @@
 The counterpart of ``wgpu_3dgs_core_tpu.render.renderer``. :func:`render`
 is the tensor-in/image-out function; :func:`render_gaussians` takes a
 :class:`GaussiansBuffer` (or packed layout) plus the reference's
-GaussianTransform/ModelTransform knobs. The forward runs the kernels K1
-and K2 (ops/expand.py) and K3 (ops/rasterize.py); the backward of the
-binned rasterization (:class:`BinRasterize`, the counterpart of the JAX
-``custom_vjp``) runs K4 (ops/rasterize.py), a key sort, K5 and K6
-(ops/segreduce.py), and autograd carries the result through the plain
-torch projection, SH and parameterization. Everything between the kernels
-is plain torch on the inputs' device.
+GaussianTransform/ModelTransform knobs. The forward runs the SH colour
+kernel (ops/sh.py), K1 and K2 (ops/expand.py) and K3 (ops/rasterize.py);
+the backward of the binned rasterization (:class:`BinRasterize`, the
+counterpart of the JAX ``custom_vjp``) runs K4 (ops/rasterize.py), a key
+sort, K5 and K6 (ops/segreduce.py), and autograd carries the result
+through the SH colour's backward kernel and the plain torch projection and
+parameterization. Everything between the kernels is plain torch on the
+inputs' device.
 
 Each stage runs in a named scope (``utils/profiling.py``): ``render.unpack``,
 ``render.project``, ``render.bin``, ``render.raster``, and in the backward
@@ -43,7 +44,7 @@ from ..ops.binning import (
     pad_schedule,
     padded_capacity,
 )
-from ..ops.projection import project
+from ..ops.projection import camera_position, project
 from ..ops.rasterize import (
     rasterize_tiles_bwd,
     rasterize_tiles_fwd,
@@ -55,7 +56,7 @@ from ..ops.segreduce import (
     sort_keys,
     uncompact_columns,
 )
-from ..ops.sh import gaussian_color
+from ..ops.sh import gaussian_color, sh_color
 from ..ops.transforms import (
     device_constant,
     unpack_color,
@@ -64,7 +65,7 @@ from ..ops.transforms import (
 )
 from ..utils.profiling import count, named_scope
 from .camera import Camera
-from .reference import point_conic, view_dirs
+from .reference import point_conic
 
 # Measured capacities leave this much room over the counted stream, as in
 # the JAX package: slack for the scene or camera drifting after the count.
@@ -115,15 +116,25 @@ def project_and_color(
     display_mode: GaussianDisplayMode = GaussianDisplayMode.SPLAT,
     antialiased: bool = False,
 ):
-    """Shared render prologue: :func:`project_splats` + view-dependent
-    color. Returns (splats, rgb [N, 3], opacity' [N])."""
+    """Shared render prologue: :func:`project_splats` +
+    :func:`view_color`. Returns (splats, rgb [N, 3], opacity' [N])."""
     splats, opacity = project_splats(
         means, cov3d_sigma6, opacity, camera, model_transform, size,
         max_std_dev, display_mode, antialiased,
     )
-    rgb = gaussian_color(base_color, sh, view_dirs(means, camera), sh_deg,
-                         no_sh0)
-    return splats, rgb, opacity
+    return splats, view_color(means, base_color, camera, sh, sh_deg,
+                              no_sh0), opacity
+
+
+def view_color(means, base_color, camera, sh=None, sh_deg: int = 0,
+               no_sh0: bool = False):
+    """Each gaussian's colour [N, 3] seen from ``camera``: with SH,
+    ``ops/sh.py::sh_color`` (the SH kernels on the card); without, the
+    clamped base colour of ``gaussian_color``, which needs no direction."""
+    if sh is not None and sh_deg >= 1:
+        return sh_color(base_color, sh, means, camera_position(camera),
+                        sh_deg, no_sh0)
+    return gaussian_color(base_color, None, None, 0, no_sh0)
 
 
 @torch.no_grad()

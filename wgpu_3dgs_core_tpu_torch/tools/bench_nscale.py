@@ -6,14 +6,20 @@ rasterizer's Function, each the ``torch.autograd.grad`` of the JAX
 tool's loss for that piece (its forward included, as the JAX tool's):
 
 - ``sh_bwd[N,15,3]``: sum(rgb * 1e-6) of ``gaussian_color`` in the
-  port's layout, w.r.t. (colour, sh, means);
+  port's layout, w.r.t. (colour, sh, means): the PyTorch graph;
+- ``sh_bwd(kernel)``: the same through ``sh_color``, the renderer's SH
+  colour (on the card its forward and backward kernels), and
+  ``sh_fwd(kernel)`` its forward alone;
+- ``sh_bwd(plain)``: the same by ``sh_color_plain`` forward and the
+  closed-form ``sh_color_bwd_plain``, the kernels' plain versions;
 - ``sh_bwd[45,N]``: the same colour at sh_deg 3 through attribute-major
   inputs (colour [3, N], sh [45, N] coefficient-major, means [3, N]);
 - ``proj_bwd``: sum(xy * 1e-6) + sum(conic * 1e-7) + sum(depth * 1e-6)
   of ``project`` w.r.t. (means, cov6): the port's projection takes the
   opacity only into the binning extent, detached, so it has no gradient
   there (the JAX tool's is zeros);
-- ``table_bwd(all)``: ``tools/bench_bwd.py``'s ``nscale``.
+- ``table_bwd(all)``: ``tools/bench_bwd.py``'s ``nscale`` (through
+  ``project_and_color``, so through ``sh_color``).
 
     python -m wgpu_3dgs_core_tpu_torch.tools.bench_nscale \\
         [--gaussians 1000000] [--sh-deg 3] [--iters 10] [--device cuda]
@@ -29,7 +35,15 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops.projection import camera_position, project
-from ..ops.sh import SH_C1, SH_C2, SH_C3, gaussian_color
+from ..ops.sh import (
+    SH_C1,
+    SH_C2,
+    SH_C3,
+    gaussian_color,
+    sh_color,
+    sh_color_bwd_plain,
+    sh_color_plain,
+)
 from ..ops.transforms import device_constant
 from ..render.reference import view_dirs
 from . import bench_bwd
@@ -76,16 +90,31 @@ def sh_color_t(color_t, sh_t, means_t, camera):
 
 
 def stages(params, camera, sh_deg: int) -> dict:
-    """The four pieces on ``params`` (five leaves requiring grad): each a
-    call returning its gradients."""
+    """The pieces on ``params`` (five leaves requiring grad): each a call
+    returning its gradients (``sh_fwd(kernel)``: the colour)."""
     means, cov6, color, opac, sh = params
     n = means.shape[0]
+    cam_pos = camera_position(camera)
     transposed = [t.detach().reshape(n, -1).T.contiguous().requires_grad_(
         True) for t in (color, sh, means)]
 
     def sh_bwd():
         rgb = gaussian_color(color, sh, view_dirs(means, camera), sh_deg)
         return torch.autograd.grad(torch.sum(rgb * 1e-6), (color, sh, means))
+
+    def sh_fwd_kernel():
+        with torch.no_grad():
+            return sh_color(color, sh, means, cam_pos, sh_deg)
+
+    def sh_bwd_kernel():
+        rgb = sh_color(color, sh, means, cam_pos, sh_deg)
+        return torch.autograd.grad(torch.sum(rgb * 1e-6), (color, sh, means))
+
+    def sh_bwd_plain():
+        inputs = [t.detach() for t in (color, sh, means)]
+        rgb = sh_color_plain(*inputs, cam_pos, sh_deg)
+        return sh_color_bwd_plain(*inputs, cam_pos, sh_deg, False,
+                                  torch.full_like(rgb, 1e-6))
 
     def sh_bwd_t():
         rgb = sh_color_t(*transposed, camera)
@@ -99,6 +128,9 @@ def stages(params, camera, sh_deg: int) -> dict:
 
     return {
         "sh_bwd[N,15,3]": sh_bwd,
+        "sh_fwd(kernel)": sh_fwd_kernel,
+        "sh_bwd(kernel)": sh_bwd_kernel,
+        "sh_bwd(plain)": sh_bwd_plain,
         "sh_bwd[45,N]": sh_bwd_t,
         "proj_bwd": proj_bwd,
         "table_bwd(all)": lambda: bench_bwd.nscale(params, camera, sh_deg),

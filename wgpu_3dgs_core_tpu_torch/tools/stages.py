@@ -43,12 +43,11 @@ from ..ops.binning import (
 )
 from ..ops.cuda import launch_counts, reset_launch_counts
 from ..ops.rasterize import rasterize_tiles_fwd
-from ..ops.sh import gaussian_color
-from ..render.reference import view_dirs
 from ..render.renderer import (
     attribute_columns,
     project_splats,
     tile_local_stream,
+    view_color,
 )
 from ..utils.profiling import (
     PROFILER_STATS,
@@ -118,7 +117,8 @@ def forward_prefix(params, camera, max_fragments: int, max_rows: int,
     FORWARD_PREFIX, op for op as ``render`` runs it, without autograd:
 
     - project: ``project_splats`` (splats, opacity);
-    - color: the SH colour (rgb) and the attribute columns (attr_cols);
+    - color: the colour (rgb; with SH the SH kernels on the card) and the
+      attribute columns (attr_cols);
     - bin: ``bin_splats_attrs`` (stream, attrs_sorted, table): K1, K2,
       the tile sort and the tile ranges;
     - sched: ``pad_schedule`` (sched);
@@ -133,7 +133,7 @@ def forward_prefix(params, camera, max_fragments: int, max_rows: int,
     out = dict(splats=splats, opacity=opacity)
     if upto == "project":
         return out
-    rgb = gaussian_color(color, sh, view_dirs(means, camera), sh_deg)
+    rgb = view_color(means, color, camera, sh, sh_deg)
     attr_cols = attribute_columns(splats.xy, splats.conic, rgb, opacity,
                                   splats.mask)
     out.update(rgb=rgb, attr_cols=attr_cols)

@@ -44,6 +44,7 @@ KERNEL_KINDS = (
     ("K6 uncompact", "uncompact_kernel"),
     ("K2 expand_fragments", "expand_fragments_kernel"),
     ("K1 expand_rows", "expand_rows_kernel"),
+    ("K12 sh_color", "sh_color_"),
     ("radix sort", "RadixSort"),
     ("cat/stack", "CatArray"),
     ("index/gather", "index"),
