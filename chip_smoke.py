@@ -11,8 +11,10 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    again from the same source as K9's v6_full and K10's s2_gather
    (csrc/variants.cu), get the same resources there;
 2. hold each forward kernel against its plain torch version on the card,
-   on a mid scene (65,536 gaussians, 512x512): K1 and K2 bit for bit, K3
-   within 3e-5 (the card's exp and FMA contraction differ from torch's);
+   on a mid scene (65,536 gaussians, 512x512): K1 and K2 bit for bit, K1's
+   row-table form (ops/binning.py::expand_row_table, the render path's
+   K1) bit for bit row_table(expand_rows_plain(...)), K3 within 3e-5 (the
+   card's exp and FMA contraction differ from torch's);
 3. hold the forward slice (render_gaussians through the kernels) against
    the brute-force reference renderer on the card (2,500 gaussians,
    256x192) within 1e-4 max abs: the tiled and brute-force renderers sum
@@ -23,7 +25,9 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    warm-ups, CUDA events) and each kernel: its device time (device_ms: the
    median over 10 back-to-back calls of the device operations one call
    launches, by torch.profiler), one call by CUDA events (what a caller
-   pays, the wrapper's host work included) and its plain version;
+   pays, the wrapper's host work included) and its plain version; K1's
+   row-table form bit for bit its composition there too, and its device
+   ms in turns with K1's row stream + row_table (median of 3 device_ms);
 5. profile the bench-scene forward: host enqueue time against wall time
    of back-to-back forwards, and torch.profiler's device kernels per
    forward (count, time, time by kind);
@@ -283,6 +287,7 @@ from wgpu_3dgs_core_tpu_torch.ops.binning import (  # noqa: E402
     bin_splats,
     bin_splats_attrs,
     count_fragments,
+    expand_row_table,
     gaussian_table,
     num_tiles,
     pad_schedule,
@@ -579,19 +584,30 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def compare_expand(inp):
-    """K1 and K2 against their plain versions: every output bit for bit.
-    Returns the max abs difference of the float outputs (0 when equal)."""
+    """K1 (both forms) and K2 against their plain versions: every output
+    bit for bit. Returns the max abs difference of K1's row stream, of its
+    row-table form (ints and attributes) and of K2's float outputs (0 when
+    equal)."""
     k1 = ex.expand_rows(*inp["k1"])
     p1 = ex.expand_rows_plain(*inp["k1"])
     if not (torch.equal(k1.ints, p1.ints)
             and torch.equal(bits(k1.attrs), bits(p1.attrs))):
         fail("K1 expand_rows differs from its plain version")
+    kt, kt_total = expand_row_table(*inp["k1"])
+    pt, pt_total = row_table(p1, inp["k1"][1])
+    if not (torch.equal(kt.ints, pt.ints)
+            and torch.equal(bits(kt.attrs), bits(pt.attrs))
+            and int(kt_total) == int(pt_total) == int(inp["total"])):
+        fail("K1 expand_row_table differs from row_table(expand_rows_plain"
+             "(...))")
     k2 = ex.expand_fragments_with_attrs(*inp["k2"])
     p2 = ex.expand_fragments_with_attrs_plain(*inp["k2"])
     if not (torch.equal(k2[0], p2[0]) and torch.equal(k2[1], p2[1])
             and torch.equal(bits(k2[2]), bits(p2[2]))):
         fail("K2 expand_fragments_with_attrs differs from its plain version")
-    return (float((k1.attrs - p1.attrs).abs().max()),
+    e_table = max(float((kt.attrs - pt.attrs).abs().max()),
+                  float((kt.ints.long() - pt.ints.long()).abs().max()))
+    return (float((k1.attrs - p1.attrs).abs().max()), e_table,
             float((k2[2] - p2[2]).abs().max()))
 
 
@@ -696,13 +712,13 @@ def mid_scene(device):
 def phase_kernels(mid):
     cfg = MID
     inp = mid[3]
-    e1, e2 = compare_expand(inp)
+    e1, et, e2 = compare_expand(inp)
     e3 = compare_k3(inp)
     print(f"phase 2 kernels vs plain ({cfg['n']} gaussians, "
           f"{cfg['width']}x{cfg['height']}, {int(inp['total'])} fragments): "
-          f"K1 bit-identical, K2 bit-identical, K3 max abs err {e3:.3g} "
-          f"(tol {K3_TOL})", flush=True)
-    return e1, e2, e3
+          f"K1 bit-identical (both forms), K2 bit-identical, K3 max abs err "
+          f"{e3:.3g} (tol {K3_TOL})", flush=True)
+    return e1, et, e2, e3
 
 
 def phase_spec(device):
@@ -756,14 +772,14 @@ def phase_full(device, errs, scene):
 
     inp = kernel_inputs(args, cam, max_fragments, max_rows, pad_slack,
                         background=kw["background"])
-    e1, e2 = compare_expand(inp)
+    e1, et, e2 = compare_expand(inp)
     lens = inp["k3"][2]
     densest = int(torch.argmax(lens))
     rng = np.random.default_rng(0)
     picks = rng.choice(lens.shape[0], 63, replace=False).tolist()
     tiles = sorted(set(picks) | {densest})
     e3 = compare_k3(inp, tiles=tiles)
-    errs = (max(errs[0], e1), max(errs[1], e2), max(errs[2], e3))
+    errs = tuple(map(max, errs, (e1, et, e2, e3)))
 
     torch.cuda.synchronize(device)
     reset_launch_counts()
@@ -788,6 +804,9 @@ def phase_full(device, errs, scene):
     ms = {
         "expand_rows": kernel_times(lambda: ex.expand_rows(*k1),
                                     lambda: ex.expand_rows_plain(*k1)),
+        "expand_row_table": kernel_times(
+            lambda: expand_row_table(*k1),
+            lambda: row_table(ex.expand_rows_plain(*k1), k1[1])),
         "expand_fragments": kernel_times(
             lambda: ex.expand_fragments_with_attrs(*k2),
             lambda: ex.expand_fragments_with_attrs_plain(*k2)),
@@ -795,6 +814,11 @@ def phase_full(device, errs, scene):
             lambda: ra.rasterize_tiles_fwd(*k3),
             lambda: ra.rasterize_tiles_fwd_plain(*k3)),
     }
+    row_turns = in_turns({
+        "expand_row_table": lambda: expand_row_table(*k1),
+        "expand_rows + row_table": lambda: row_table(ex.expand_rows(*k1),
+                                                     k1[1]),
+    })
     mpix = cfg["width"] * cfg["height"] / fwd_ms / 1e3
     print(f"phase 4 full slice ({cfg['n']} gaussians, {cfg['width']}x"
           f"{cfg['height']}, sh_deg 3, pad_slack {pad_slack}): capacities "
@@ -804,7 +828,9 @@ def phase_full(device, errs, scene):
           f"({int(lens[densest])} fragments) max abs err {e3:.3g}; forward "
           f"{fwd_ms:.3f} ms ({mpix:.1f} Mpix/s); device/call/plain ms "
           + ", ".join(f"{k} {t[0]:.4f}/{t[3]:.4f}/{t[1]:.3f}"
-                      for k, t in ms.items()),
+                      for k, t in ms.items())
+          + "; K1's row table in turns (device ms, median of 3): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in row_turns.items()),
           flush=True)
     return ms, errs, forward, fwd_ms, inp
 
@@ -1055,6 +1081,12 @@ def kernel_bounds(inp, bi):
         "expand_rows": bound(
             f32 * ((ex.TAB_ROWS + table.attrs.shape[0]) * n + 1)
             + f32 * (ex.ROW_INTS + table.attrs.shape[0]) * r_cap, 0),
+        # The table's rows it reads once (all but the counts: offsets,
+        # x0, y0, span, gid and the 10 attribute rows), and 60 B a slot:
+        # the kernel's 5 int and 9 f32 rows, the cumsum's offsets.
+        "expand_row_table": bound(
+            f32 * ((ex.TAB_ROWS - 1 + table.attrs.shape[0]) * n + 1)
+            + f32 * (ex.TAB_ROWS + rtab.attrs.shape[0]) * r_cap, 0),
         "expand_fragments": bound(
             f32 * ((ex.TAB_ROWS + rtab.attrs.shape[0]) * rows + 1)
             + f32 * (2 + rtab.attrs.shape[0] + 1) * f_cap, 0),
@@ -1113,9 +1145,11 @@ def phase_train(device, scene, inp, fwd_ms, errs):
     reset_launch_counts()
     res, loss, grads = step()
     torch.cuda.synchronize(device)
+    # K1's row-stream form is reported as counted: the step runs its
+    # row-table form.
     launches = {k: v for k, v in launch_counts().items()
-                if k in RENDER_KERNELS + SH_KERNELS}
-    if min(launches.values()) < 1:
+                if k in ("expand_rows",) + RENDER_KERNELS + SH_KERNELS}
+    if min(launches.get(k, 0) for k in RENDER_KERNELS + SH_KERNELS) < 1:
         fail(f"a kernel of the training step did not run: {launches}")
     if bool(res.overflow):
         fail("training step overflowed its capacities")
@@ -1147,7 +1181,7 @@ def phase_train(device, scene, inp, fwd_ms, errs):
     # versions, and timed beside them and the library calls.
     bi = backward_inputs(inp)
     e_full, (n4, n5) = compare_backward(bi)
-    errs = errs[:3] + tuple(max(a, b) for a, b in zip(errs[3:], e_full))
+    errs = errs[:4] + tuple(max(a, b) for a, b in zip(errs[4:], e_full))
     # K4's first design on the bench stream and the hard tiles: K4 within
     # K4_TOL of it.
     n_first = 0.0
@@ -2584,7 +2618,7 @@ def phase_data_tools(card: str):
           + f", K1-K6 launched on every rank; {card}", flush=True)
 
 
-FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
+FORWARD_KERNELS = ("expand_row_table", "expand_fragments", "rasterize_fwd")
 RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
                                     "uncompact")
 SH_KERNELS = ("sh_color_fwd", "sh_color_bwd")  # K12, with SH only
@@ -2595,11 +2629,13 @@ TOOL_KERNELS = {
     "kernel_fwd_bwd": ("rasterize_fwd", "rasterize_bwd"),
     "reorder": ("segment_sums", "uncompact"),
     "step": RENDER_KERNELS,
-    "rows": ("expand_rows",),
+    "rows": ("expand_row_table",),
     "expand": FORWARD_KERNELS[:2],
 }
 KERNELS = (
     ("expand_rows", "wgpu_3dgs_core_tpu_torch/csrc/expand.cu",
+     "wgpu_3dgs_core_tpu/ops/expand.py:571"),
+    ("expand_row_table", "wgpu_3dgs_core_tpu_torch/csrc/expand.cu",
      "wgpu_3dgs_core_tpu/ops/expand.py:571"),
     ("expand_fragments", "wgpu_3dgs_core_tpu_torch/csrc/expand.cu",
      "wgpu_3dgs_core_tpu/ops/expand.py:202"),
@@ -2651,7 +2687,7 @@ def run(device: torch.device, card: str):
           f"{counts['evaluated']} evaluated and {counts['blended']} blended "
           f"(fragment, pixel) pairs, {counts['n_live']} gaussians with "
           f"fragments", flush=True)
-    errs = dict(zip(RENDER_KERNELS, errs), **errs_sh)
+    errs = dict(zip(("expand_rows",) + RENDER_KERNELS, errs), **errs_sh)
     errs["kernel_bundle"] = phase_bundles(cases)
     (launches["kernel_bundle"], err8, ms["kernel_bundle"],
      bounds["kernel_bundle"]) = phase_core(device, scene[0])

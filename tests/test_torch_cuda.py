@@ -52,7 +52,7 @@ W, H = 256, 192
 CAM = T.Camera.look_at(eye=(0.0, 0.0, -6.0), target=(0.0, 0.0, 0.0),
                        width=W, height=H, fov_y=0.9)
 BG = (0.1, 0.2, 0.3)
-FORWARD_KERNELS = ("expand_rows", "expand_fragments", "rasterize_fwd")
+FORWARD_KERNELS = ("expand_row_table", "expand_fragments", "rasterize_fwd")
 RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
                                     "uncompact")
 
@@ -203,7 +203,8 @@ def test_render_on_card_matches_cpu_and_counts_launches(cuda):
     T.reset_launch_counts()
     res = T.render(*args, CAM, background=BG)
     torch.cuda.synchronize()
-    assert T.launch_counts() == {"expand_rows": 1, "expand_fragments": 1,
+    assert T.launch_counts() == {"expand_rows": 0, "expand_row_table": 1,
+                                 "expand_fragments": 1,
                                  "rasterize_fwd": 1, "rasterize_bwd": 0,
                                  "segment_sums": 0, "uncompact": 0,
                                  "expand_fragments_bbox": 0,

@@ -158,7 +158,8 @@ def test_cpu_render_launches_no_kernel():
     assert res.image.shape == (32, 32, 3)
     assert (nn(res.transmittance) < 1).any()
     counts = T.launch_counts()
-    assert set(counts) == {"expand_rows", "expand_fragments", "rasterize_fwd",
+    assert set(counts) == {"expand_rows", "expand_row_table",
+                           "expand_fragments", "rasterize_fwd",
                            "rasterize_bwd", "segment_sums", "uncompact",
                            "expand_fragments_bbox", "kernel_bundle",
                            "rasterize_variants", "segment_sum_variants",

@@ -2,8 +2,8 @@
 a training step and a viewer frame under ``trace`` show every stage span,
 nested as the step nests them; ``named_scope`` costs nothing while no
 profiler records; a ``counting`` session holds each binning call's
-fragments and capacity, and ``count`` without one records nothing. No
-JAX: the spans are the port's alone.
+fragments, rows and their capacities, and ``count`` without one records
+nothing. No JAX: the spans are the port's alone.
 """
 
 import numpy as np
@@ -14,7 +14,9 @@ import wgpu_3dgs_core_tpu_torch as T
 from wgpu_3dgs_core_tpu_torch.ops.binning import (
     CHUNK,
     bin_splats_attrs,
+    gaussian_table,
     num_tiles,
+    row_capacity,
 )
 from wgpu_3dgs_core_tpu_torch.render import renderer as R
 from wgpu_3dgs_core_tpu_torch.render.camera import Camera
@@ -122,7 +124,8 @@ def test_counting_holds_the_stream_fragments_and_capacity(one_torch_thread):
             R.render(means, cov6, color, opac, CAM, sh=sh, sh_deg=3,
                      max_fragments=MAX_FRAGMENTS - 1)
     sums, calls = rec.totals()
-    assert calls == {"fragments": 2, "capacity": 2, "overflow": 2}
+    assert calls == {"fragments": 2, "capacity": 2, "overflow": 2,
+                     "rows": 2, "row_capacity": 2}
     # The same call's stream, binned again outside the session.
     f_cap = -(-(MAX_FRAGMENTS - 1) // CHUNK) * CHUNK
     with torch.no_grad():
@@ -134,10 +137,15 @@ def test_counting_holds_the_stream_fragments_and_capacity(one_torch_thread):
         stream, _, _ = bin_splats_attrs(splats.xy, splats.extent,
                                         splats.depth, splats.mask, cols, tx,
                                         ty, f_cap)
-    frags = int(stream.num_fragments)
-    assert 0 < frags < f_cap
+        _, total_rows = gaussian_table(splats.xy, splats.extent,
+                                       splats.depth, splats.mask, cols, tx,
+                                       ty)
+    frags, rows, r_cap = (int(stream.num_fragments), int(total_rows),
+                          row_capacity(f_cap))
+    assert 0 < frags < f_cap and 0 < rows < r_cap
     assert sums == {"fragments": 2 * frags, "capacity": 2 * f_cap,
-                    "overflow": 0}
+                    "overflow": 0, "rows": 2 * rows,
+                    "row_capacity": 2 * r_cap}
     assert all(type(v) is int for v in sums.values())
 
 

@@ -3,7 +3,11 @@
 // fragments of their whole tile bbox) of the one-level binning.
 //
 // K1 replaces wgpu_3dgs_core_tpu/ops/expand.py::_expand_row_kernel
-//    (launcher expand_rows, pl.pallas_call at expand.py:647).
+//    (launcher expand_rows, pl.pallas_call at expand.py:647). Its row-table
+//    form (launcher ops/binning.py::expand_row_table) also evaluates each
+//    row's exact tile interval (ops/binning.py::_row_tile_span) and writes
+//    the per-row table K2 reads (ops/binning.py::row_table), all but its
+//    offset row: the render path's K1.
 // K2 replaces wgpu_3dgs_core_tpu/ops/expand.py::_expand_attr_kernel
 //    (launcher expand_fragments_with_attrs, pl.pallas_call at expand.py:438).
 // K7 replaces wgpu_3dgs_core_tpu/ops/expand.py::_expand_kernel
@@ -16,14 +20,18 @@
 // each of its n rows a run [off, off + cnt) of output slots. For every
 // output slot below the device-resident `total`, the thread finds the
 // owning row and writes that row's fields, plus the slot's rank inside
-// the run; slots at or past `total` get the padding values. Everything is
-// integer arithmetic and copies, so the outputs equal the plain torch
-// versions (searchsorted + gathers) bit for bit.
+// the run; slots at or past `total` get the padding values. Everything but
+// the row-table form's interval is integer arithmetic and copies, and that
+// interval rounds each float operation once in torch's order, so the
+// outputs equal the plain torch versions (searchsorted + gathers, and
+// _row_tile_span) bit for bit.
 //
 // What bounds them on the card: memory. Each slot writes 56 B (K1: 4 int32
-// + 10 f32) or 48 B (K2: 2 int32 + 10 f32) and reads its owner's row; the
-// owner search is a ~log2(n) binary search whose upper levels every warp
-// shares, so it runs out of L1/L2. At 1080p K2 writes ~3M slots, ~140 MB.
+// + 10 f32; its row-table form 5 int32 + 9 f32, and the cumsum after it
+// the offset's 4 B) or 48 B (K2: 2 int32 + 10 f32) and reads its owner's
+// row; the owner search is a ~log2(n) binary search whose upper levels
+// every warp shares, so it runs out of L1/L2. At 1080p K2 writes ~3M
+// slots, ~140 MB.
 //
 // Design of K1 and K2: one thread per output slot over the whole
 // capacity, reading `total` from device memory (no host sync, no
@@ -57,6 +65,105 @@ constexpr int kRowSpanX = 2;
 constexpr int kRowGid = 3;
 constexpr int kRowInts = 4;
 
+// TILE_SIZE and ROW_TRIM_EPS of ops/binning.py.
+constexpr float kTileSize = 16.0f;
+constexpr float kRowTrimEps = 0.05f;
+
+// The attribute rows the row-table form reads for the interval
+// (ops/binning.py::gaussian_table's attr10: x, y, conic a/b/c, r, g, b,
+// opacity, then ry).
+constexpr int kAttrX = 0;
+constexpr int kAttrY = 1;
+constexpr int kAttrA = 2;
+constexpr int kAttrB = 3;
+constexpr int kAttrC = 4;
+
+// torch's float ops as its kernels compute them, so the row interval
+// equals the plain version's bit for bit. clamp_min(x, lo) keeps a NaN x;
+// maximum and minimum give NaN if either side is one; clamp(x, lo, hi)
+// with tensor bounds is minimum(maximum(x, lo), hi).
+__device__ __forceinline__ float t_clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+
+__device__ __forceinline__ float t_maximum(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : (a > b ? a : b);
+}
+
+__device__ __forceinline__ float t_minimum(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : (a < b ? a : b);
+}
+
+__device__ __forceinline__ float t_clamp(float x, float lo, float hi) {
+  return t_minimum(t_maximum(x, lo), hi);
+}
+
+// k * sqrt(clamp_min(ry^2 - dy^2, 0)): the support's half-width at dy.
+__device__ __forceinline__ float row_width(float k, float ry, float dy) {
+  return __fmul_rn(k, __fsqrt_rn(t_clamp_min(
+      __fsub_rn(__fmul_rn(ry, ry), __fmul_rn(dy, dy)), 0.0f)));
+}
+
+// ops/binning.py::_row_tile_span for one row: torch's operations in its
+// order, each rounded once (the _rn intrinsics keep nvcc from contracting
+// a multiply and an add into an FMA). The clamps bound both ends inside
+// the bbox, so only a NaN interval (a non-finite centre or conic) leaves
+// the int32 range; __float2int_rz makes it 0, an empty row, as
+// _row_tile_span's nan_to_num does. Returns (tx0, cnt) in *tx0, *cnt.
+__device__ __forceinline__ void row_tile_span(float tx0_bbox, float row,
+                                              float span_x, float ry,
+                                              float cx, float cy, float ca,
+                                              float cb, float cc, int* tx0,
+                                              int* cnt) {
+  const float a_safe = t_clamp_min(ca, 1e-12f);
+  const float beta = __fdiv_rn(cb, a_safe);
+  const float d = t_clamp_min(
+      __fsub_rn(__fmul_rn(ca, cc), __fmul_rn(cb, cb)), 0.0f);
+  const float k = __fdiv_rn(__fsqrt_rn(d), a_safe);
+  const float dyg = __fdiv_rn(
+      __fmul_rn(cb, ry),
+      t_clamp_min(__fsqrt_rn(t_clamp_min(__fmul_rn(ca, cc), 0.0f)),
+                  1e-12f));
+
+  const float y_px = __fmul_rn(row, kTileSize);
+  const float d_lo = t_clamp(__fsub_rn(y_px, cy), -ry, ry);
+  const float d_hi =
+      t_clamp(__fsub_rn(__fadd_rn(y_px, kTileSize), cy), -ry, ry);
+  const float c_max = t_clamp(-dyg, d_lo, d_hi);
+  const float c_min = t_clamp(dyg, d_lo, d_hi);
+
+  const float nb = -beta;
+  const float w_lo = row_width(k, ry, d_lo);
+  const float w_hi = row_width(k, ry, d_hi);
+  const float xmax = t_maximum(
+      t_maximum(__fadd_rn(__fmul_rn(nb, d_lo), w_lo),
+                __fadd_rn(__fmul_rn(nb, d_hi), w_hi)),
+      __fadd_rn(__fmul_rn(nb, c_max), row_width(k, ry, c_max)));
+  const float xmin = t_minimum(
+      t_minimum(__fsub_rn(__fmul_rn(nb, d_lo), w_lo),
+                __fsub_rn(__fmul_rn(nb, d_hi), w_hi)),
+      __fsub_rn(__fmul_rn(nb, c_min), row_width(k, ry, c_min)));
+
+  float lo = floorf(
+      __fdiv_rn(__fsub_rn(__fadd_rn(cx, xmin), kRowTrimEps), kTileSize));
+  float hi = __fadd_rn(
+      floorf(__fdiv_rn(__fadd_rn(__fadd_rn(cx, xmax), kRowTrimEps),
+                       kTileSize)),
+      1.0f);
+  lo = t_clamp(lo, tx0_bbox, __fsub_rn(__fadd_rn(tx0_bbox, span_x), 1.0f));
+  hi = t_clamp(hi, __fadd_rn(lo, 1.0f), __fadd_rn(tx0_bbox, span_x));
+  *tx0 = __float2int_rz(lo);
+  *cnt = __float2int_rz(__fsub_rn(hi, lo));
+}
+
+// K1. Row-stream form (kTable false): each slot's (x0, row, span_x, gid)
+// and all a_rows attribute rows. Row-table form (kTable true): the row's
+// exact tile interval in registers, written as the per-row table's
+// fields (count, max(count, 1), tx0, tile row, gid; not the offsets) and
+// the a_rows - 1 blend attributes before ry. Slots at or past `total`
+// get zeros, and in the table a span of 1, as row_table's live mask
+// gives them.
+template <bool kTable>
 __global__ void __launch_bounds__(kThreads)
 expand_rows_kernel(const int* __restrict__ tab, const float* __restrict__ attr,
                    int n, int a_rows, const int* __restrict__ total_ptr,
@@ -65,21 +172,50 @@ expand_rows_kernel(const int* __restrict__ tab, const float* __restrict__ attr,
   const int s = blockIdx.x * kThreads + threadIdx.x;
   if (s >= cap) return;
   const size_t cs = static_cast<size_t>(cap);
+  const size_t sn = static_cast<size_t>(n);
   const int total = __ldg(total_ptr);
+  const int copied = kTable ? a_rows - 1 : a_rows;
   if (s < total) {
     const int* off = tab + GS_TAB_OFF * n;
     const int g = gs_owner(off, n, s);
     const int rank = s - __ldg(off + g);
-    out_i[kRowX0 * cs + s] = __ldg(tab + GS_TAB_X0 * n + g);
-    out_i[kRowRow * cs + s] = __ldg(tab + GS_TAB_Y0 * n + g) + rank;
-    out_i[kRowSpanX * cs + s] = __ldg(tab + GS_TAB_SPAN * n + g);
-    out_i[kRowGid * cs + s] = __ldg(tab + GS_TAB_GID * n + g);
-    for (int k = 0; k < a_rows; ++k) {
-      out_f[k * cs + s] = __ldg(attr + static_cast<size_t>(k) * n + g);
+    const int x0 = __ldg(tab + GS_TAB_X0 * n + g);
+    const int row = __ldg(tab + GS_TAB_Y0 * n + g) + rank;
+    const int span = __ldg(tab + GS_TAB_SPAN * n + g);
+    const int gid = __ldg(tab + GS_TAB_GID * n + g);
+    if constexpr (kTable) {
+      int tx0, cnt;
+      row_tile_span(static_cast<float>(x0), static_cast<float>(row),
+                    static_cast<float>(span),
+                    __ldg(attr + static_cast<size_t>(copied) * sn + g),
+                    __ldg(attr + kAttrX * sn + g),
+                    __ldg(attr + kAttrY * sn + g),
+                    __ldg(attr + kAttrA * sn + g),
+                    __ldg(attr + kAttrB * sn + g),
+                    __ldg(attr + kAttrC * sn + g), &tx0, &cnt);
+      out_i[GS_TAB_CNT * cs + s] = cnt;
+      out_i[GS_TAB_SPAN * cs + s] = max(cnt, 1);
+      out_i[GS_TAB_X0 * cs + s] = tx0;
+      out_i[GS_TAB_Y0 * cs + s] = row;
+      out_i[GS_TAB_GID * cs + s] = gid;
+    } else {
+      out_i[kRowX0 * cs + s] = x0;
+      out_i[kRowRow * cs + s] = row;
+      out_i[kRowSpanX * cs + s] = span;
+      out_i[kRowGid * cs + s] = gid;
+    }
+    for (int k = 0; k < copied; ++k) {
+      out_f[k * cs + s] = __ldg(attr + static_cast<size_t>(k) * sn + g);
     }
   } else {
-    for (int r = 0; r < kRowInts; ++r) out_i[r * cs + s] = 0;
-    for (int k = 0; k < a_rows; ++k) out_f[k * cs + s] = 0.0f;
+    if constexpr (kTable) {
+      for (int r = 0; r < GS_TAB_ROWS; ++r) {
+        if (r != GS_TAB_OFF) out_i[r * cs + s] = r == GS_TAB_SPAN ? 1 : 0;
+      }
+    } else {
+      for (int r = 0; r < kRowInts; ++r) out_i[r * cs + s] = 0;
+    }
+    for (int k = 0; k < copied; ++k) out_f[k * cs + s] = 0.0f;
   }
 }
 
@@ -224,8 +360,22 @@ GS_EXPORT int gs_expand_rows(const int* tab, const float* attr, int n,
                              int a_rows, const int* total, int cap,
                              int* out_i, float* out_f, void* stream) {
   const int blocks = (cap + kThreads - 1) / kThreads;
-  expand_rows_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  expand_rows_kernel<false><<<blocks, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      tab, attr, n, a_rows, total, cap, out_i, out_f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tab: int32 [GS_TAB_ROWS, n]; attr: f32 [a_rows, n] (the 9 blend
+// attributes, then ry); total: int32 [1]; out_i: int32 [GS_TAB_ROWS, cap],
+// every row but GS_TAB_OFF written; out_f: f32 [a_rows - 1, cap]. cap > 0,
+// as above.
+GS_EXPORT int gs_expand_row_table(const int* tab, const float* attr, int n,
+                                  int a_rows, const int* total, int cap,
+                                  int* out_i, float* out_f, void* stream) {
+  const int blocks = (cap + kThreads - 1) / kThreads;
+  expand_rows_kernel<true><<<blocks, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       tab, attr, n, a_rows, total, cap, out_i, out_f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,8 @@ The counterpart of ``wgpu_3dgs_core_tpu.ops.binning``: the one-level bbox
 binning :func:`bin_splats` (K7 expansion, a stable (tile, depth) sort) and,
 for the render path, exact two-level row-trimmed binning
 (:func:`bin_splats_attrs`:
-K1 row expansion, exact per-row tile intervals, K2 fragment expansion,
+K1 row expansion with each row's exact tile interval
+(:func:`expand_row_table`), K2 fragment expansion,
 one stable 1-key tile sort, ``searchsorted`` tile ranges) and the
 tile-scale part of ``pad_schedule``, which keeps the JAX package's
 capacity and overflow contract. The capacity dry pass
@@ -18,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from .cuda import CudaKernel, I, P, on_cpu
 from .expand import (
     EXPAND_BLOCK,
     ROW_GID,
@@ -25,15 +27,19 @@ from .expand import (
     ROW_SPANX,
     ROW_X0,
     TAB_CNT,
+    TAB_OFF,
+    TAB_ROWS,
     RowStream,
+    SegmentTable,
     _check_limits,
     _exclusive_cumsum,
     build_row_tables,
     build_segment_table,
     build_tables,
+    check_table,
     expand_fragments,
     expand_fragments_with_attrs,
-    expand_rows,
+    expand_rows_plain,
 )
 
 TILE_SIZE = 16
@@ -205,7 +211,9 @@ def _row_tile_span(tx0_bbox, row, span_x, ry, cx, cy, ca, cb, cc):
     Per-row f32 inputs: bbox first tile column, tile row, bbox
     tile width, support y half-extent, the gaussian's centre and conic.
     Returns (tx0, cnt) int32, clamped into the bbox (cnt >= 1 for any row
-    inside it). The same f32 arithmetic as the JAX package.
+    inside it). The same f32 arithmetic as the JAX package. A NaN
+    interval (a non-finite centre or conic) is an empty row, tx0 = cnt =
+    0, as JAX's and CUDA's casts give; the CPU's would give INT_MIN.
     """
     a_safe = torch.clamp_min(ca, 1e-12)
     beta = cb / a_safe
@@ -237,7 +245,8 @@ def _row_tile_span(tx0_bbox, row, span_x, ry, cx, cy, ca, cb, cc):
     tx1 = torch.floor((cx + xmax + ROW_TRIM_EPS) / TILE_SIZE) + 1.0
     tx0 = torch.clamp(tx0, tx0_bbox, tx0_bbox + span_x - 1.0)
     tx1 = torch.clamp(tx1, tx0 + 1.0, tx0_bbox + span_x)
-    return tx0.to(torch.int32), (tx1 - tx0).to(torch.int32)
+    return (torch.nan_to_num(tx0, nan=0.0).to(torch.int32),
+            torch.nan_to_num(tx1 - tx0, nan=0.0).to(torch.int32))
 
 
 def _exact_bounds(xy, extent, conic, op_eff, mask, tiles_x, tiles_y,
@@ -301,6 +310,39 @@ def row_table(rows: RowStream, total_rows):
     return table, table.ints[TAB_CNT].sum(dtype=torch.int32)
 
 
+EXPAND_ROW_TABLE = CudaKernel(
+    "expand_row_table", "gs_expand_row_table", [P, P, I, I, P, I, P, P],
+)
+
+
+def expand_row_table(table: SegmentTable, total_rows: torch.Tensor,
+                     r_cap: int):
+    """K1's row-table form: the per-gaussian table (counts = bbox row
+    spans, attribute rows the 9 blend attributes then ry) straight into
+    the per-row table K2 reads. Returns (table, total fragments as a 0-d
+    int32 tensor), equal bit for bit to
+    ``row_table(expand_rows_plain(table, total_rows, r_cap), total_rows)``,
+    its plain version and spec. On the card one launch writes every row
+    but the offsets, which a cumsum of the counts fills."""
+    check_table(table, total_rows)
+    if on_cpu(table.ints, table.attrs, total_rows):
+        return row_table(expand_rows_plain(table, total_rows, r_cap),
+                         total_rows)
+    a, n = table.attrs.shape
+    dev = table.ints.device
+    ints = torch.empty((TAB_ROWS, r_cap), dtype=torch.int32, device=dev)
+    attrs = torch.empty((a - 1, r_cap), dtype=torch.float32, device=dev)
+    EXPAND_ROW_TABLE.launch(
+        table.ints.data_ptr(), table.attrs.data_ptr(), n, a,
+        total_rows.data_ptr(), r_cap, ints.data_ptr(), attrs.data_ptr(),
+        work=r_cap, device=dev,
+    )
+    cnt, off = ints[TAB_CNT], ints[TAB_OFF]
+    torch.cumsum(cnt, 0, dtype=torch.int32, out=off)
+    off.sub_(cnt)
+    return SegmentTable(ints, attrs), cnt.sum(dtype=torch.int32)
+
+
 def row_capacity(max_rows: int) -> int:
     """Row-stream capacity, rounded up to EXPAND_BLOCK as in the JAX
     package so both flag the same row overflow."""
@@ -314,8 +356,9 @@ def bin_splats_attrs(xy, extent, depth, mask, attr_cols, tiles_x: int,
     """Two-level exact binning with the per-fragment attribute fetch.
 
     ``attr_cols``: [A, N] f32 per-gaussian attributes (x, y, conic a/b/c,
-    r, g, b, opacity). Gaussians expand into their bbox tile rows (K1),
-    each row into its exact tile interval (K2); the stream is emitted
+    r, g, b, opacity). Gaussians expand into their bbox tile rows, each
+    with its exact tile interval (K1, :func:`expand_row_table`), each row
+    into the fragments of its interval (K2); the stream is emitted
     depth-major, so one stable sort by tile yields (tile, depth, id)
     blend order. ``max_rows`` bounds the row stream (default
     ``max_fragments``).
@@ -331,8 +374,7 @@ def bin_splats_attrs(xy, extent, depth, mask, attr_cols, tiles_x: int,
         opacity_cull,
     )
     r_cap = row_capacity(max_fragments if max_rows is None else max_rows)
-    rows = expand_rows(table, total_rows, r_cap)  # K1
-    rtab, total = row_table(rows, total_rows)
+    rtab, total = expand_row_table(table, total_rows, r_cap)  # K1
     tile, _, fetched = expand_fragments_with_attrs(  # K2
         rtab, total, max_fragments, tiles_x, t_total,
     )

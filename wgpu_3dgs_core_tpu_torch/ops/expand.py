@@ -6,7 +6,9 @@ slot, the owning row's fields and the slot's rank in the run:
 
 - K1, :func:`expand_rows` (replaces ``_expand_row_kernel``): gaussians ->
   (gaussian, bbox tile row) entries, over the per-gaussian table whose
-  counts are the bbox row spans.
+  counts are the bbox row spans. The render path runs its row-table form,
+  ``binning.expand_row_table``, which also computes each row's exact tile
+  interval and writes the per-row table K2 reads.
 - K2, :func:`expand_fragments_with_attrs` (replaces
   ``_expand_attr_kernel``): tile rows -> fragments (tile id, gaussian id,
   attributes), over the per-row table (span == count).

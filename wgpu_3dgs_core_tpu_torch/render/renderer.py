@@ -43,7 +43,9 @@ from ..ops.binning import (
     num_tiles,
     pad_schedule,
     padded_capacity,
+    row_capacity,
 )
+from ..ops.expand import TAB_CNT
 from ..ops.projection import camera_position, project
 from ..ops.rasterize import (
     rasterize_tiles_bwd,
@@ -255,6 +257,7 @@ class BinRasterize(torch.autograd.Function):
             )
             sched = pad_schedule(stream, f_pad_cap)
             frags = tile_local_stream(attrs_sorted, stream.tile_id, tiles_x)
+            rows = table.ints[TAB_CNT].sum(dtype=torch.int32)
         with named_scope("render.raster"):
             tiles = rasterize_tiles_fwd(frags, stream.tile_start,
                                         sched.draw_len, background,
@@ -263,6 +266,9 @@ class BinRasterize(torch.autograd.Function):
         count("fragments", stream.num_fragments)
         count("capacity", f_cap)
         count("overflow", overflow)
+        count("rows", rows)
+        count("row_capacity", row_capacity(
+            f_cap if max_rows is None else max_rows))
         ctx.save_for_backward(frags, stream.gauss_id, stream.tile_id,
                               stream.tile_start, sched.tile_len,
                               sched.draw_len, table.ints, tiles, overflow)

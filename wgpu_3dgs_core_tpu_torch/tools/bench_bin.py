@@ -8,8 +8,8 @@ the one before:
 - ``counts``: the exact-support bounds (``_exact_bounds``) and the row
   counts, as ``gaussian_table`` begins;
 - ``tables``: ``gaussian_table``, the depth-ordered per-gaussian table;
-- ``rows``: + K1 (``expand_rows``) and ``row_table``, the rows' exact
-  tile intervals;
+- ``rows``: + K1 with the rows' exact tile intervals
+  (``expand_row_table``), the per-row table;
 - ``expand``: + K2 (``expand_fragments_with_attrs``);
 - ``sort``: + the stable 1-key tile sort and the attribute gather;
 - ``ranges``: + the ``searchsorted`` tile ranges and ``pad_schedule``.
@@ -30,14 +30,14 @@ import torch
 from ..ops.binning import (
     FragmentStream,
     _exact_bounds,
+    expand_row_table,
     gaussian_table,
     num_tiles,
     pad_schedule,
     padded_capacity,
     row_capacity,
-    row_table,
 )
-from ..ops.expand import expand_fragments_with_attrs, expand_rows
+from ..ops.expand import expand_fragments_with_attrs
 from .stages import (
     CUTOFF_SQ,
     bench_parser,
@@ -87,9 +87,8 @@ def bin_prefix(proj: dict, tiles_x: int, tiles_y: int, max_fragments: int,
     if upto == "tables":
         return out
     r_cap = row_capacity(max_rows)
-    rows = expand_rows(table, total_rows, r_cap)  # K1
-    rtab, total = row_table(rows, total_rows)
-    out.update(rows=rows, row_table=rtab, total=total)
+    rtab, total = expand_row_table(table, total_rows, r_cap)  # K1
+    out.update(row_table=rtab, total=total)
     if upto == "rows":
         return out
     t_total = tiles_x * tiles_y
