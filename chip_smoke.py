@@ -38,9 +38,9 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    hard_streams) within 1e-5, zeros in the rows no run reaches, two
    launches bit-identical; K4 in SPLAT and ELLIPSE mode on the mid stream
    and on the tiles the pixel-box cull finds hard (tools/
-   bench_kernel_variants.py::hard_tiles) within 1e-4 of its plain version
-   and of its first design, two launches bit-identical; two backward
-   passes of the slice give bit-identical gradients;
+   bench_kernel_variants.py::hard_tiles) within 1e-4 of its plain version,
+   two launches bit-identical; two backward passes of the slice give
+   bit-identical gradients;
 7. hold the slice's gradients (means, quats, scales, colour, opacity, sh;
    loss sum((image - target)^2)) against autograd of render_reference on
    the card, on the spec scene, within 1e-4 of each parameter's largest
@@ -53,8 +53,8 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    its plain version and timed as in phase 4 and, for K5 and K6, beside
    the device time of the one PyTorch call that computes the same
    function (segment_reduce; torch.zeros + index_copy_); K4 within 1e-4 of
-   its first design (ops/variants.py::rasterize_bwd_first) on the bench
-   stream and the hard tiles; K12, the SH colour's forward and backward
+   its plain version on the bench stream and the hard tiles, two launches
+   bit-identical; K12, the SH colour's forward and backward
    kernels (csrc/sh.cu), on the bench scene's colour, sh and means at
    sh_deg 3 with a random cotangent: the forward bit for bit its plain
    version; the backward's d_base bit for bit the closed form's
@@ -74,9 +74,7 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     groups and outputs, [N, 8] rows, entry points, a config-specialised
     kernel), f16/i8/u8 casts, 3-byte rows at an odd address and a map_add
     of 1,000 items (below one tile), each against the plain launcher on CPU
-    copies of its inputs and against K8's first design
-    (ops/variants.py::bundle_dispatch_first), bit for bit, with each one's
-    tile plan;
+    copies of its inputs, bit for bit, with each one's tile plan;
 11. the core layer's compute path at full width: the bench scene's 1M
     gaussians packed in each of the 12 layouts, uploaded into a
     GaussiansBuffer, unpacked by a layout-specialised bundle through
@@ -86,19 +84,17 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     of the buffer updated in place and unpacked again; download_packed
     equal to the host pack bit for bit; download_gaussians round-tripping
     the 3 reversible layouts and raising IrreversibleConfigError on the 9
-    others; every unpack bit for bit that of K8's first design. The
-    SINGLE/ROT_SCALE unpack and a map_add bundle over 2^24 f32 items are
-    timed in turns with K8's first design and torch.add (median of 3
-    device_ms), and by one call each; the host's enqueue per dispatch
+    others. The SINGLE/ROT_SCALE unpack and a map_add bundle over 2^24 f32
+    items are timed in turns with torch.add (median of 3 device_ms), and
+    by one call each; the host's enqueue per dispatch
     (bundle-owned and caller-managed resources) beside torch.add's, and
     the tile plans;
 12. K7: one-level bin_splats of the mid scene and of the bench scene's
     projection at 1920x1080 (capacity: count_fragments x 1.5 rounded up
     to 512), no overflow, every FragmentStream field equal to the same
-    binning on the CPU, K7 bit for bit against its plain version and its
-    first design (ops/variants.py::expand_fragments_first) there and on
-    the hard tables of tools/expand_tables.py, and timed in turns with its
-    first design (median of 3 device_ms) and beside its plain version;
+    binning on the CPU, K7 bit for bit against its plain version there and
+    on the hard tables of tools/expand_tables.py, and timed (median of 3
+    device_ms) beside its plain version;
 13. K11, the live-bound launch probe (tools/probe_dyngrid.py): its three
     launch forms (a capacity grid, a host readback, a device launch) write
     x + 1 on the live prefix and leave the tail untouched, at 3 and 8 of 8
@@ -108,20 +104,19 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
     by level, compiled from K5's own source) on the TPU tool's synthetic
     stream (3,955,712 slots, 1M gaussians) and on phase 8's backward
     stream, each in device ms with its step from the level before, beside
-    K5's first design and segment_reduce: s0_prep's output, staging copy
-    and row map bit for bit its plain version; s1_scan, s2_gather and
-    s2_nostage within 1e-5 of their plain versions and bit for bit K5,
-    also on the seven hard streams; K5's first design within 1e-5 of K5;
-    then K5, s2_gather, K5's first design and segment_reduce in turns on
-    the bench-step stream (device ms);
+    segment_reduce: s0_prep's output, staging copy and row map bit for bit
+    its plain version; s1_scan, s2_gather and s2_nostage within 1e-5 of
+    their plain versions and bit for bit K5, also on the seven hard
+    streams; then K5, s2_gather and segment_reduce in turns on the
+    bench-step stream (device ms);
 15. K9, the rasterizer levels (tools/bench_kernel_variants.py: K3 stripped
     level by level, compiled from K3's own source) on phase 4's stream,
-    each in device ms with its step from the level before, beside K3's
-    first design: v0_stage's boxes within one pixel of the plain mirror's;
-    v6_full bit for bit K3; every other level within 1e-5 of each tile's
-    largest value of its plain version, culled by the card's boxes; then,
-    in both modes on the mid stream and the hard tiles, v6_full and K3's
-    first design bit for bit K3 and K3 within 3e-5 of its plain version;
+    each in device ms with its step from the level before: v0_stage's
+    boxes within one pixel of the plain mirror's; v6_full bit for bit K3;
+    every other level within 1e-5 of each tile's largest value of its
+    plain version, culled by the card's boxes; then, in both modes on the
+    mid stream and the hard tiles, v6_full bit for bit K3 and K3 within
+    3e-5 of its plain version;
 16. the port bench (wgpu_3dgs_core_tpu_torch/bench.py) in-process, its
     headline step and --full, each printing its JSON line, no overflow;
 17. bench-shape gradient parity (tools/grad_parity.py: 100,000 gaussians,
@@ -129,9 +124,8 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
 18. the ELLIPSE repair: the bench scene in ELLIPSE mode at the capacities
     measure_capacities gives that mode at headroom 1.0, no overflow;
 19. the rasterizer's redesign on the bench stream, in turns (device ms,
-    median of 3): K3 against its first design and K9's v6_full, K4
-    against its first design, and K4 on its longest tile alone (the
-    tail); the (warp, fragment) pairs the cull keeps and skips and the
+    median of 3): K3 against K9's v6_full, K4, and K4 on its longest tile
+    alone (the tail); the (warp, fragment) pairs the cull keeps and skips and the
     blending warp events.
 20. the sharded renderer at D=1 in this process (NCCL, one rank): the
     bench scene's training step (mean(image^2)) through render_sharded,
@@ -191,10 +185,10 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
 
 Then a JSON line of the kernels (launches on the training step, for K7 and
 K8 on phases 11-12, for K9-K11 on the tools' runs of phases 13-15; errors;
-"ms" the device time (device_ms; for K7 and K8 in turns), "call_ms" one
-call by CUDA events, "library_ms" the library call's device time; and the
-bound: the least time the card could take for the same work; K9 and K10
-take their full level's, K3's and K5's), the card's name
+"ms" the device time (device_ms; for K7 and K8 the median of 3),
+"call_ms" one call by CUDA events, "library_ms" the library call's device
+time; and the bound: the least time the card could take for the same
+work; K9 and K10 take their full level's, K3's and K5's), the card's name
 and power limit from nvidia-smi, and last
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero; so
 does a machine without a CUDA card. The run uses one card: the first that
@@ -925,9 +919,8 @@ def hard_tile_cases(device):
 
 
 def check_k4(name, k4):
-    """K4 within K4_TOL of its plain version and of its first design
-    (ops/variants.py::rasterize_bwd_first), and two launches
-    bit-identical. Returns the max normalized errors against the two."""
+    """K4 within K4_TOL of its plain version, and two launches
+    bit-identical. Returns the max normalized error."""
     got = ra.rasterize_tiles_bwd(*k4)
     if not equal_bits(got, ra.rasterize_tiles_bwd(*k4)):
         fail(f"two K4 launches on {name} differ")
@@ -936,10 +929,7 @@ def check_k4(name, k4):
     n_plain = normalized_err(got, ra.rasterize_tiles_bwd_plain(*k4))
     if not n_plain <= K4_TOL:
         fail(f"K4 on {name} differs from its plain version by {n_plain}")
-    n_first = normalized_err(got, va.rasterize_bwd_first(*k4))
-    if not n_first <= K4_TOL:
-        fail(f"K4 on {name} differs from its first design by {n_first}")
-    return n_plain, n_first
+    return n_plain
 
 
 def phase_backward_kernels(device, mid):
@@ -949,14 +939,11 @@ def phase_backward_kernels(device, mid):
     hard_err, hard_norm = k5_hard_streams(device)
     errs = (errs[0], max(errs[1], hard_err), errs[2])
     # K4 in both modes on the mid stream and on the hard tiles: within
-    # K4_TOL of its plain version and of its first design, two launches
-    # bit-identical.
-    k4_plain = k4_first = 0.0
+    # K4_TOL of its plain version, two launches bit-identical.
     cases = [(f"mid/{mode}", with_mode(inp["k3"], mode))
              for mode in (0, 1)] + hard_tile_cases(device)
-    for name, k3 in cases:
-        a, b = check_k4(name, k4_inputs(k3, seed=3))
-        k4_plain, k4_first = max(k4_plain, a), max(k4_first, b)
+    k4_plain = max(check_k4(name, k4_inputs(k3, seed=3))
+                   for name, k3 in cases)
 
     # Two backward passes of the whole slice, bit for bit.
     x = leaves(args)
@@ -972,9 +959,8 @@ def phase_backward_kernels(device, mid):
           f"{cfg['width']}x{cfg['height']}, {int(inp['total'])} fragments, "
           f"random cotangent): K4 max abs err {errs[0]:.3g}, normalized "
           f"{n4:.3g} (tol {K4_TOL}), in both modes on the mid stream and "
-          f"the {len(k9.HARD_TILES)} hard tile sets {k4_plain:.3g}, "
-          f"{k4_first:.3g} from its first design, two launches "
-          f"bit-identical; K5 max abs err {errs[1]:.3g}, "
+          f"the {len(k9.HARD_TILES)} hard tile sets {k4_plain:.3g}, two "
+          f"launches bit-identical; K5 max abs err {errs[1]:.3g}, "
           f"normalized {n5:.3g} (tol {K5_TOL}), on the "
           f"{len(k10.HARD_STREAMS)} hard streams {hard_norm:.3g}, unreached "
           f"rows zero, two launches bit-identical; K6 bit-identical; two "
@@ -1182,13 +1168,12 @@ def phase_train(device, scene, inp, fwd_ms, errs):
     bi = backward_inputs(inp)
     e_full, (n4, n5) = compare_backward(bi)
     errs = errs[:4] + tuple(max(a, b) for a, b in zip(errs[4:], e_full))
-    # K4's first design on the bench stream and the hard tiles: K4 within
-    # K4_TOL of it.
-    n_first = 0.0
-    for name, k4_args in [("the bench stream", bi["k4"])] + [
-            (name, k4_inputs(k3, seed=4))
-            for name, k3 in hard_tile_cases(device)]:
-        n_first = max(n_first, check_k4(name, k4_args)[1])
+    # K4 on the bench stream and the hard tiles: within K4_TOL of its
+    # plain version, two launches bit-identical.
+    n_hard = max(check_k4(name, k4_args)
+                 for name, k4_args in [("the bench stream", bi["k4"])] + [
+                     (name, k4_inputs(k3, seed=4))
+                     for name, k3 in hard_tile_cases(device)])
     lib5, lib6 = library_calls(bi)
     k4, k5, k6 = bi["k4"], bi["k5"], bi["k6"]
     ms = {
@@ -1213,8 +1198,9 @@ def phase_train(device, scene, inp, fwd_ms, errs):
           f"{caps['max_rows']}) losses "
           + ", ".join(f"{v:.6g}" for v in losses)
           + f"; bench stream K4 normalized err {n4:.3g}, K5 {n5:.3g}, K6 "
-          f"bit-identical; K4 within {n_first:.3g} of its first design on "
-          f"the bench stream and the hard tiles; device/call/plain/library "
+          f"bit-identical; K4 within {n_hard:.3g} of its plain version on "
+          f"the bench stream and the hard tiles, two launches "
+          f"bit-identical; device/call/plain/library "
           f"device ms "
           + ", ".join(f"{k} {a:.4f}/{d:.4f}/{b:.3f}/{c:.4f}" if c is not None
                       else f"{k} {a:.4f}/{d:.4f}/{b:.3f}"
@@ -1433,11 +1419,9 @@ def bundle_cases(device):
 
 
 def bundle_sources(cases):
-    """Every bundle source of phases 10-11, each in K8's design and in its
-    first design, to build in phase 1."""
-    return [src for first in (False, True) for src in (
-        [b.cuda_source(n, res, first) for _, b, res, n in cases]
-        + [ub.unpack_source(layout, MODEL, first) for layout in ALL_LAYOUTS])]
+    """Every bundle source of phases 10-11, to build in phase 1."""
+    return ([b.cuda_source(n, res) for _, b, res, n in cases]
+            + [ub.unpack_source(layout, MODEL) for layout in ALL_LAYOUTS])
 
 
 def as_tuple(out):
@@ -1457,15 +1441,12 @@ def abs_err(a, b) -> float:
 
 def phase_bundles(cases):
     """Each bundle on the card against the plain launcher on CPU copies of
-    the same inputs, bit for bit, and against K8's first design. Returns
-    the largest abs difference over every output (0 when all are
-    equal)."""
+    the same inputs, bit for bit. Returns the largest abs difference over
+    every output (0 when all are equal)."""
     err = 0.0
     for name, bundle, res, n in cases:
         own = bundle._resources is None  # caller-managed resources
         got = as_tuple(bundle.dispatch(n, res if own else None))
-        first = as_tuple(va.bundle_dispatch_first(bundle, n,
-                                                  res if own else None))
         cpu_res = [[t.cpu() for t in g] for g in res]
         want = as_tuple(bundle.dispatch(n, cpu_res))
         if not all(g.shape == w.shape for g, w in zip(got, want)):
@@ -1473,8 +1454,6 @@ def phase_bundles(cases):
         err = max([err] + [abs_err(g.cpu(), w) for g, w in zip(got, want)])
         if not all(equal_bits(g.cpu(), w) for g, w in zip(got, want)):
             fail(f"K8 bundle {name!r} differs from the plain launcher")
-        if not all(equal_bits(g, f) for g, f in zip(got, first)):
-            fail(f"K8 bundle {name!r} differs from K8's first design")
         if name == "caller-managed":
             try:
                 bundle.dispatch(n)
@@ -1482,10 +1461,10 @@ def phase_bundles(cases):
                 pass
             else:
                 fail("a bundle without resources dispatched")
-    print(f"phase 10 K8 kernel bundles vs the plain launcher and K8's first "
-          f"design ({BUNDLE_N} items; {BUNDLE_FEW} below one tile): "
+    print(f"phase 10 K8 kernel bundles vs the plain launcher "
+          f"({BUNDLE_N} items; {BUNDLE_FEW} below one tile): "
           + ", ".join(name for name, *_ in cases)
-          + f" bit-identical to both (max abs err {err}); items a tile "
+          + f" bit-identical (max abs err {err}); items a tile "
           + ", ".join(f"{name} {plan_of(bundle, res, n)}"
                       for name, bundle, res, n in cases), flush=True)
     return err
@@ -1534,13 +1513,6 @@ def packed_bytes_equal(a, b) -> bool:
                      (a.cov3d, b.cov3d)))
 
 
-def check_first(got, bundle, n, layout):
-    """K8's unpack ``got`` bit for bit that of K8's first design."""
-    first = va.bundle_dispatch_first(bundle, n)
-    if not all(equal_bits(g, f) for g, f in zip(got, first)):
-        fail(f"K8 unpack {layout} differs from K8's first design")
-
-
 def in_turns(calls, rounds=3) -> dict:
     """Each callable's device time (device_ms), in turns: the median over
     ``rounds`` rounds of one device_ms each, in ms."""
@@ -1569,11 +1541,9 @@ def phase_core(device, soa):
         bundle = ub.unpack_bundle(buf, MODEL)
         out = bundle.dispatch(n)
         e1, n1 = check_unpack(out, buf, layout)
-        check_first(out, bundle, n, layout)
         buf.update_range(start, fresh)  # in place: the bundle sees it
         out = bundle.dispatch(n)
         e2, n2 = check_unpack(out, buf, layout)
-        check_first(out, bundle, n, layout)
         errs += [e1, e2]
         norms += [n1, n2]
         want = pack(fresh, layout)
@@ -1624,16 +1594,12 @@ def phase_core(device, soa):
     want = torch.add(a, b)
     for design, out in (("", add.dispatch(MAP_ADD_N)),
                         (" (caller-managed)", free.dispatch(MAP_ADD_N,
-                                                            [[a, b]])),
-                        ("'s first design", va.bundle_dispatch_first(
-                            add, MAP_ADD_N))):
+                                                            [[a, b]]))):
         if not equal_bits(out[:, 0], want):
             fail(f"K8{design} map_add differs from torch.add")
     calls = {
         "unpack": lambda: bundle.dispatch(n),
-        "unpack first": lambda: va.bundle_dispatch_first(bundle, n),
         "map_add": lambda: add.dispatch(MAP_ADD_N),
-        "map_add first": lambda: va.bundle_dispatch_first(add, MAP_ADD_N),
         "torch.add": lambda: torch.add(a, b),
     }
     t = in_turns(calls)
@@ -1649,10 +1615,9 @@ def phase_core(device, soa):
     print(f"phase 11 K8 in turns (median of 3 medians of 10 calls' device "
           f"time, profiler), ms: "
           + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-          + f"; unpack / first {t['unpack'] / t['unpack first']:.3f}, / bound "
-          f"({unpack_bound[0]:.4f} ms) {t['unpack'] / unpack_bound[0]:.3f}; "
-          f"map_add / first {t['map_add'] / t['map_add first']:.3f}, / "
-          f"torch.add {t['map_add'] / t['torch.add']:.3f}, / bound "
+          + f"; unpack / bound ({unpack_bound[0]:.4f} ms) "
+          f"{t['unpack'] / unpack_bound[0]:.3f}; map_add / torch.add "
+          f"{t['map_add'] / t['torch.add']:.3f}, / bound "
           f"({add_bound[0]:.4f} ms) {t['map_add'] / add_bound[0]:.3f}; one "
           f"call by CUDA events, ms: "
           + ", ".join(f"{k} {v:.4f}" for k, v in call.items())
@@ -1671,8 +1636,7 @@ def phase_core(device, soa):
           f"download_packed "
           f"bit-identical to the host pack in 12 layouts; download_gaussians "
           f"round-trips {reversible}, raises IrreversibleConfigError on "
-          f"{12 - reversible}; every unpack bit-identical to K8's first "
-          f"design; {launches} bundle launches; SINGLE/ROT_SCALE unpack "
+          f"{12 - reversible}; {launches} bundle launches; SINGLE/ROT_SCALE unpack "
           f"device {t['unpack']:.4f} ms, plain {plain_ms:.3f} ms, bound "
           f"{unpack_bound[0]:.4f} ms ({in_bytes + out_bytes} B); map_add over "
           f"{MAP_ADD_N} f32 device {t['map_add']:.4f} ms, torch.add "
@@ -1733,19 +1697,16 @@ def phase_binning(device, mid, scene):
     live = int((table.ints[ex.TAB_CNT] > 0).sum())
     k7_bytes = 4 * (ex.TAB_ROWS - 1) * live + 8 * cap
     k7_bound = bound(k7_bytes, 0)
-    t = in_turns({"K7": lambda: ex.expand_fragments(*k7),
-                  "K7 first": lambda: va.expand_fragments_first(*k7)})
+    t = in_turns({"K7": lambda: ex.expand_fragments(*k7)})
     ms = (t["K7"], cuda_ms(lambda: ex.expand_fragments_plain(*k7), reps=REPS),
           None, cuda_ms(lambda: ex.expand_fragments(*k7)))
     blocks = -(-(table.ints.shape[1] + cap) // ex.MERGE_ITEMS)
     print(f"phase 12 one-level bin_splats (K7): " + "; ".join(notes)
           + f"; no overflow, every stream field equal to the CPU's, K7 "
-          f"bit-identical to plain and to its first design there and on the "
-          f"hard tables {', '.join(expand_tables.HARD_TABLES)} (max abs err "
-          f"{err}); {launches} K7 launches; bench K7 in turns (median of 3 "
-          f"medians of 10 calls' device time): {t['K7']:.4f} ms, first design "
-          f"{t['K7 first']:.4f} ms, K7 / first {t['K7'] / t['K7 first']:.3f}, "
-          f"K7 / bound {t['K7'] / k7_bound[0]:.2f}; one call {ms[3]:.4f} ms; "
+          f"bit-identical to plain there and on the hard tables "
+          f"{', '.join(expand_tables.HARD_TABLES)} (max abs err {err}); "
+          f"{launches} K7 launches; bench K7 (median of 3 medians of 10 "
+          f"calls' device time): {t['K7']:.4f} ms, K7 / bound {t['K7'] / k7_bound[0]:.2f}; one call {ms[3]:.4f} ms; "
           f"plain {ms[1]:.3f} ms; {blocks} blocks of {ex.MERGE_ITEMS} merge "
           f"steps; bound {k7_bound[0]:.4f} ms ({k7_bytes} B: 20 B x {live} "
           f"live table rows + 8 B x {cap} slots; 24 B x all "
@@ -1756,15 +1717,12 @@ def phase_binning(device, mid, scene):
 
 
 def check_k7(name, k7) -> float:
-    """K7 bit for bit its plain version and its first design on ``k7``
-    (K7's arguments); returns the max abs difference from plain (0)."""
+    """K7 bit for bit its plain version on ``k7`` (K7's arguments);
+    returns the max abs difference from plain (0)."""
     got, want = ex.expand_fragments(*k7), ex.expand_fragments_plain(*k7)
-    first = va.expand_fragments_first(*k7)
-    for a, w, f in zip(got, want, first):
+    for a, w in zip(got, want):
         if not torch.equal(a, w):
             fail(f"K7 differs from its plain version on {name}")
-        if not torch.equal(a, f):
-            fail(f"K7 differs from its first design on {name}")
     return max(abs_err(g, w) for g, w in zip(got, want))
 
 
@@ -1866,9 +1824,8 @@ def phase_segsum_variants(device, bi, bound5):
     step from the level before. Every level is held to its plain version
     (s0_prep bit for bit, the others within K5_TOL of the row's largest
     sum) and s1_scan, s2_gather (K5 compiled again) and s2_nostage to K5
-    bit for bit, there and on the seven hard streams; K5's first design
-    within K5_TOL of K5. Then K5, s2_gather, K5's first design and
-    segment_reduce in turns on the bench-step stream (device ms)."""
+    bit for bit, there and on the seven hard streams. Then K5, s2_gather
+    and segment_reduce in turns on the bench-step stream (device ms)."""
     streams = (("synthetic", k10.synthetic_stream(*SEGSUM_SYNTHETIC,
                                                   device=device)),
                ("bench step", bi["k5"]))
@@ -1879,7 +1836,7 @@ def phase_segsum_variants(device, bi, bound5):
     launches = launch_counts()["segment_sum_variants"]
     if launches < 1:
         fail("K10 did not run on the variant bench's path")
-    err = first_err = 0.0
+    err = 0.0
     for name, st in streams:
         keys, perm, grad, gid_col, n = st
         k5 = sr.segment_sums_sorted(*st)
@@ -1901,11 +1858,6 @@ def phase_segsum_variants(device, bi, bound5):
                 fail(f"K10 {level} on the {name} stream differs from its "
                      f"plain version by {norm}")
         k10_full_levels(name, st, k5)
-        first_err = max(first_err, normalized_err(
-            va.segment_sums_first(*st), k5))
-        if not first_err <= K5_TOL:
-            fail(f"K5's first design on the {name} stream differs from K5 "
-                 f"by {first_err}")
     for name, st in k10.hard_streams(device=device).items():
         k10_full_levels(name, st, sr.segment_sums_sorted(*st))
     plain_ms = cuda_ms(
@@ -1913,27 +1865,26 @@ def phase_segsum_variants(device, bi, bound5):
     for name, res in results.items():
         print(f"phase 14 K10 segment-sum levels ({name} stream, "
               f"{res['f']} slots, {res['rows']} rows; device ms, step from "
-              f"the level before): {level_table(res['levels'])}; K5's first "
-              f"design {res['first_design_ms']:.4f} ms; segment_reduce "
+              f"the level before): {level_table(res['levels'])}; "
+              f"segment_reduce "
               f"{res['segment_reduce_ms']:.4f} ms", flush=True)
     print(f"phase 14 K10 checks: s0_prep's output, staging copy and row map "
           f"bit for bit its plain version; s1_scan, s2_gather, s2_nostage "
           f"within {K5_TOL} of their plain versions (max abs err "
           f"{err:.3g}) and bit for bit K5 on both streams and the "
-          f"{len(k10.HARD_STREAMS)} hard streams; K5's first design within "
-          f"{first_err:.3g} of K5; {launches} launches; bench-step "
+          f"{len(k10.HARD_STREAMS)} hard streams; {launches} launches; "
+          f"bench-step "
           f"s2_gather plain {plain_ms:.3f} ms", flush=True)
     k5, lib = bi["k5"], k10.segment_reduce_call(*bi["k5"])
     calls = {"K5": lambda: sr.segment_sums_sorted(*k5),
              "K10 s2_gather": lambda: va.segment_sums_level("s2_gather", *k5),
-             "K5 first": lambda: va.segment_sums_first(*k5),
              "segment_reduce": lib}
     t = in_turns(calls)
     print(f"phase 14 bench-step stream, in turns (device ms, median of 3): "
           + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
           + f"; K5 / s2_gather {t['K5'] / t['K10 s2_gather']:.4f}, K5 / "
-          f"first {t['K5'] / t['K5 first']:.3f}, K5 / bound ({bound5:.4f} "
-          f"ms) {t['K5'] / bound5:.2f}, K5 / segment_reduce "
+          f"bound ({bound5:.4f} ms) {t['K5'] / bound5:.2f}, K5 / "
+          f"segment_reduce "
           f"{t['K5'] / t['segment_reduce']:.2f}", flush=True)
     s2 = (device_ms(calls["K10 s2_gather"]), plain_ms,
           device_ms(calls["segment_reduce"]),
@@ -1951,8 +1902,8 @@ def phase_raster_variants(device, inp, mid):
     differ printed); v6_full (K3 compiled again) held to K3 bit for bit
     and every other level to its plain version, culled by the card's
     boxes, within K9_TOL of each tile's largest value; then, in both
-    modes on the mid stream and the hard tiles, v6_full and K3's first
-    design bit for bit K3 and K3 within K3_TOL of its plain version."""
+    modes on the mid stream and the hard tiles, v6_full bit for bit K3 and
+    K3 within K3_TOL of its plain version."""
     k3_args = inp["k3"]
     frags, start, draw_len, _, cutoff_sq, mode = k3_args
     torch.cuda.synchronize(device)
@@ -1995,8 +1946,6 @@ def phase_raster_variants(device, inp, mid):
         k3 = ra.rasterize_tiles_fwd(*args)
         if not equal_bits(va.rasterize_level("v6_full", *args), k3):
             fail(f"K9 v6_full on {name} differs from K3")
-        if not equal_bits(va.rasterize_fwd_first(*args), k3):
-            fail(f"K3's first design on {name} differs from K3")
         err = abs_err(k3, ra.rasterize_tiles_fwd_plain(*args))
         if not err <= K3_TOL:
             fail(f"K3 on {name} differs from its plain version by {err}")
@@ -2009,14 +1958,12 @@ def phase_raster_variants(device, inp, mid):
     n_t = result["tiles"]
     print(f"phase 15 K9 rasterizer levels (bench stream, {n_t} tiles, "
           f"{result['fragments']} fragments; device ms, step from the level "
-          f"before): {level_table(result['levels'])}; K3's first design "
-          f"{result['first_design_ms']:.4f} ms", flush=True)
+          f"before): {level_table(result['levels'])}", flush=True)
     print(f"phase 15 K9 checks: v0_stage's boxes within one pixel of the "
           f"plain mirror's ({n_box_diff} of {staged.numel()} differ); "
           f"v6_full bit-identical to K3 (also in both modes on the mid "
-          f"stream and the {len(k9.HARD_TILES)} hard tile sets, with K3's "
-          f"first design, where K3 is within {k3_plain:.3g} of its plain "
-          f"version, tol {K3_TOL}), v5_color bit-identical to K3: {v5_k3}; "
+          f"stream and the {len(k9.HARD_TILES)} hard tile sets, where K3 is "
+          f"within {k3_plain:.3g} of its plain version, tol {K3_TOL}), v5_color bit-identical to K3: {v5_k3}; "
           f"normalized err vs plain (culled by the card's boxes) "
           + ", ".join(f"{k} {v:.3g}" for k, v in norms.items())
           + f" (tol {K9_TOL}; v6 held to K3; max abs err "
@@ -2089,19 +2036,16 @@ def longest_tile(k4):
 
 
 def phase_raster_redesign(device, inp, bi, counts, bounds):
-    """K3 and K4 against their first designs (rasterize_fwd_first and
-    rasterize_bwd_first) and K3 against K9's v6_full (K3 compiled again),
-    in turns on the bench stream (device ms, median of 3, as in phase 14),
-    with K4 on its longest tile alone against the whole kernel in the same
-    turns; and the cull's counts on the bench stream."""
+    """K3 against K9's v6_full (K3 compiled again) and K4, in turns on the
+    bench stream (device ms, median of 3, as in phase 14), with K4 on its
+    longest tile alone against the whole kernel in the same turns; and the
+    cull's counts on the bench stream."""
     k3, k4 = inp["k3"], bi["k4"]
     tile_args, tile = longest_tile(k4)
     calls = {
         "K3": lambda: ra.rasterize_tiles_fwd(*k3),
         "K9 v6_full": lambda: va.rasterize_level("v6_full", *k3),
-        "K3 first": lambda: va.rasterize_fwd_first(*k3),
         "K4": lambda: ra.rasterize_tiles_bwd(*k4),
-        "K4 first": lambda: va.rasterize_bwd_first(*k4),
         "K4 longest tile": lambda: ra.rasterize_tiles_bwd(*tile_args),
     }
     torch.cuda.synchronize(device)
@@ -2111,10 +2055,8 @@ def phase_raster_redesign(device, inp, bi, counts, bounds):
     print(f"phase 19 rasterizer redesign, in turns on the bench stream "
           f"(device ms, median of 3): "
           + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-          + f"; K3 / v6_full {t['K3'] / t['K9 v6_full']:.4f}, K3 / first "
-          f"{t['K3'] / t['K3 first']:.3f}, K3 / bound ({b3:.4f} ms) "
-          f"{t['K3'] / b3:.2f}; K4 / first {t['K4'] / t['K4 first']:.3f}, "
-          f"K4 / bound ({b4:.4f} ms) {t['K4'] / b4:.2f}", flush=True)
+          + f"; K3 / v6_full {t['K3'] / t['K9 v6_full']:.4f}, K3 / bound "
+          f"({b3:.4f} ms) {t['K3'] / b3:.2f}; K4 / bound ({b4:.4f} ms) {t['K4'] / b4:.2f}", flush=True)
     print(f"phase 19 cull on the bench stream ({counts['drawn']} drawn "
           f"fragments, {8 * counts['drawn']} (warp, fragment) pairs): kept "
           f"{kept}, skipped {skipped}, blending warp events "

@@ -213,8 +213,7 @@ def test_cuda_route_passes_the_tile(monkeypatch):
     """On the CUDA route (``on_cpu`` patched to False, nvcc and the launch
     stubbed) the entry gets the count, the block, the signature's tile
     and each array's pointer and width; the tile is kept per row widths,
-    the source built once. K8's first design's source calls its
-    own launcher and takes no plan."""
+    the source built once, the one ``cuda_source`` gives."""
     builds, launches = [], []
     monkeypatch.setattr(kb, "on_cpu", lambda *t: False)
     monkeypatch.setattr(kb.cuda, "build_sources", lambda srcs: builds.append(
@@ -238,7 +237,4 @@ def test_cuda_route_passes_the_tile(monkeypatch):
     src = builds[0][0]
     assert "gs::launch_map<gs_bundle_item>(count, block, tile, stream," in src
     assert "    int tile," in src.splitlines()
-    first = bundle.cuda_source(n, first=True)
-    assert "gs::launch_map_first<gs_bundle_item>(count, block, stream," \
-        in first
-    assert "int tile" not in first and first.count("GS_EXPORT") == 1
+    assert bundle.cuda_source(n) == src and src.count("GS_EXPORT") == 1

@@ -3,11 +3,10 @@ forward kernels K1-K3 and the backward kernels K4-K6 against their plain
 versions, launch counts, and the determinism of the backward; K7
 (one-level binning) and K8 (kernel bundles on phase 10's shapes of
 chip_smoke.py, the gaussian unpack of every layout) against their plain
-versions and their first designs; the measurement path's K9
-(rasterizer levels: v6_full against K3), K10 (segment-sum levels:
-s1_scan, s2_gather and s2_nostage against K5, and K5's first design) and
-K11 (every live-bound launch form); K5 on the streams its design finds
-hard.
+versions; the measurement path's K9 (rasterizer levels: v6_full against
+K3), K10 (segment-sum levels: s1_scan, s2_gather and s2_nostage against
+K5) and K11 (every live-bound launch form); K5 on the streams its design
+finds hard.
 
 These need a CUDA card and nvcc, and skip without one. On a machine with
 a card: ``python -m pytest -m cuda tests/test_torch_cuda.py``, with
@@ -211,11 +210,6 @@ def test_render_on_card_matches_cpu_and_counts_launches(cuda):
                                  "kernel_bundle": 0, "rasterize_variants": 0,
                                  "segment_sum_variants": 0,
                                  "probe_dyngrid": 0,
-                                 "rasterize_fwd_first": 0,
-                                 "rasterize_bwd_first": 0,
-                                 "segment_sums_first": 0,
-                                 "expand_fragments_bbox_first": 0,
-                                 "kernel_bundle_first": 0,
                                  "sh_color_fwd": 0, "sh_color_bwd": 0}
     ref = T.render(*(a.cpu() for a in args), CAM, background=BG)
     assert not bool(res.overflow) and not bool(ref.overflow)
@@ -275,10 +269,10 @@ def test_bin_splats_k7_equals_plain(cuda):
 
 
 @pytest.mark.parametrize("name", ("scene",) + HARD_TABLES)
-def test_k7_equals_plain_and_first_design(cuda, name):
-    """K7's merge-path design bit for bit its plain version and its first
-    design (a binary search per slot), on this file's scene and on the
-    tables tools/expand_tables.py makes hard for it."""
+def test_k7_equals_plain(cuda, name):
+    """K7's merge-path design bit for bit its plain version, on this
+    file's scene and on the tables tools/expand_tables.py makes hard for
+    it."""
     if name == "scene":
         spl, _, tx, ty = _binned(cuda)
         table, total = bbox_table(spl.xy, spl.extent, spl.mask, tx, ty)
@@ -287,12 +281,11 @@ def test_k7_equals_plain_and_first_design(cuda, name):
         args = hard_tables(cuda)[name]
     T.reset_launch_counts()
     got = TE.expand_fragments(*args)
-    first = KV.expand_fragments_first(*args)
     torch.cuda.synchronize()
     assert T.launch_counts()["expand_fragments_bbox"] == 1
     want = TE.expand_fragments_plain(*args)
-    for a, w, f in zip(got, want, first):
-        assert torch.equal(a, w) and torch.equal(a, f)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
 
 
 def _times(k):
@@ -342,10 +335,10 @@ def _bundle(kernel, arity, widths, block, **constants):
     return bld
 
 
-def test_bundle_shapes_equal_plain_and_first_design(cuda):
+def test_bundle_shapes_equal_plain(cuda):
     """K8 (a block per tile, bulk async copies) on the shapes of
-    chip_smoke.py's phase 10, bit for bit the plain launcher on CPU copies
-    and K8's first design: owned and caller-managed resources, an
+    chip_smoke.py's phase 10, bit for bit the plain launcher on CPU copies:
+    owned and caller-managed resources, an
     update_resources, constants, several outputs, [N, 8] rows, f16/i8/u8
     casts, 3-byte rows at an odd address (no bulk copy), and a count below
     one tile (the ragged path alone)."""
@@ -386,13 +379,10 @@ def test_bundle_shapes_equal_plain_and_first_design(cuda):
         torch.cuda.synchronize()
         assert T.launch_counts()["kernel_bundle"] == 1
         got = got if isinstance(got, tuple) else (got,)
-        first = KV.bundle_dispatch_first(bundle, count, res)
-        first = first if isinstance(first, tuple) else (first,)
         want = bundle.dispatch(count, [[t.cpu() for t in g] for g in used])
         want = want if isinstance(want, tuple) else (want,)
-        for g, f, w in zip(got, first, want):
+        for g, w in zip(got, want):
             assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
-            assert torch.equal(g.view(torch.int32), f.view(torch.int32))
 
 
 def test_unpack_bundle_equals_plain(cuda):
@@ -468,9 +458,7 @@ def test_k9_v6_full_equals_k3(cuda, mode):
 def test_k10_s2_gather_equals_k5(cuda):
     """K10's levels on the backward's own stream: s0_prep writes the
     gradients slot-major and zeros, s1_scan, s2_gather and s2_nostage are
-    K5 bit for bit, every level is within 1e-5 of its plain version, and
-    K5's first design (a warp per row, summing in another order) within
-    1e-5 of K5."""
+    K5 bit for bit, and every level is within 1e-5 of its plain version."""
     k4, (keys, perm, gid_col, n) = _backward_inputs(cuda, 0)
     dfrag = TR.rasterize_tiles_bwd(*k4)
     k5 = TS.segment_sums_sorted(keys, perm, dfrag, gid_col, n)
@@ -488,8 +476,6 @@ def test_k10_s2_gather_equals_k5(cuda):
             assert torch.equal(_bits(grad_t), _bits(grad.T.contiguous()))
         else:
             assert torch.equal(_bits(got), _bits(k5)), level
-    first = KV.segment_sums_first(keys, perm, dfrag, gid_col, n)
-    assert _normalized(first, k5) <= 1e-5
 
 
 @pytest.mark.parametrize("name", HARD_STREAMS)

@@ -163,10 +163,7 @@ def test_cpu_render_launches_no_kernel():
                            "rasterize_bwd", "segment_sums", "uncompact",
                            "expand_fragments_bbox", "kernel_bundle",
                            "rasterize_variants", "segment_sum_variants",
-                           "probe_dyngrid", "rasterize_fwd_first",
-                           "rasterize_bwd_first", "segment_sums_first",
-                           "expand_fragments_bbox_first",
-                           "kernel_bundle_first", "sh_color_fwd",
+                           "probe_dyngrid", "sh_color_fwd",
                            "sh_color_bwd"}
     assert not any(counts.values()), counts
 

@@ -6,11 +6,10 @@ against the JAX ``tools/probe_dyngrid.py::run`` (Pallas in interpret
 mode), K10's full level against the JAX ``segment_sums_sorted``, its
 scanning levels bit for bit K5's plain version on the streams K5 finds
 hard, and every K9 level against a numpy definition in float64, K3's
-warp-block cull included; then the CUDA route of each wrapper, the first
-designs' included, which never falls back to the plain version. K9's
-full level against the JAX forward kernel is in test_torch_bench.py, on
-the bench step's scene, and K10's levels against numpy in
-test_torch_segsum.py. The kernels run on the card in
+warp-block cull included; then the CUDA route of each wrapper, which
+never falls back to the plain version. K9's full level against the JAX
+forward kernel is in test_torch_bench.py, on the bench step's scene, and
+K10's levels against numpy in test_torch_segsum.py. The kernels run on the card in
 tests/test_torch_cuda.py and chip_smoke.py.
 
 tools/bench_kernel_variants.py and tools/bench_segsum.py are not imported:
@@ -238,10 +237,9 @@ def test_k9_levels_plain_match_numpy(small_stream, name):
 
 def test_cuda_route_never_falls_back(monkeypatch, small_stream):
     """With ``on_cpu`` answering False, each wrapper takes its CUDA route:
-    K9 and K10 launch their C entry with the level's arguments, the first
-    designs of K3 and K5 theirs with K3's and K5's, K11 with its form's
-    grid, and none returns the plain result; without nvcc the route
-    raises."""
+    K9 and K10 launch their C entry with the level's arguments, K11 with
+    its form's grid, and none returns the plain result; without nvcc the
+    route raises."""
     frags, start, length, bg = small_stream
     keys, perm, grad, gid_col, n = _permuted_stream()
     x = torch.rand(8 * 256)
@@ -252,16 +250,13 @@ def test_cuda_route_never_falls_back(monkeypatch, small_stream):
         lambda: KV.rasterize_level("v2_q", frags, start, length, bg),
         lambda: KV.segment_sums_level("s2_gather", keys, perm, grad,
                                        gid_col, n),
-        lambda: KV.rasterize_fwd_first(frags, start, length, bg),
-        lambda: KV.segment_sums_first(keys, perm, grad, gid_col, n),
         lambda: K11.probe("capacity", x, torch.zeros_like(x), count, 256),
     ):
         with pytest.raises(RuntimeError, match="nvcc"):
             call()
 
     launches = []
-    for kernel in (KV.RASTER_LEVEL, KV.SEGSUM_LEVEL, KV.RASTERIZE_FWD_FIRST,
-                   KV.SEGMENT_SUMS_FIRST):
+    for kernel in (KV.RASTER_LEVEL, KV.SEGSUM_LEVEL):
         monkeypatch.setattr(kernel, "launch", lambda *a, **kw: launches.append(
             (a[:2], kw["work"])))
     monkeypatch.setattr(K11, "build", lambda: T.ops.cuda.BuildInfo(
@@ -273,8 +268,6 @@ def test_cuda_route_never_falls_back(monkeypatch, small_stream):
                         launches.append((fn, a[3], kw["work"])))
     KV.rasterize_level("v2_q", frags, start, length, bg)
     KV.segment_sums_level("s2_nostage", keys, perm, grad, gid_col, n)
-    KV.rasterize_fwd_first(frags, start, length, bg)
-    KV.segment_sums_first(keys, perm, grad, gid_col, n)
     for form in K11.FORMS:
         out = torch.zeros_like(x)
         K11.probe(form, x, out, count, 256)
@@ -282,8 +275,6 @@ def test_cuda_route_never_falls_back(monkeypatch, small_stream):
     assert launches == [
         ((2, frags.data_ptr()), start.shape[0]),
         ((3, keys.data_ptr()), gid_col.shape[0]),
-        ((frags.data_ptr(), frags.shape[1]), start.shape[0]),
-        ((keys.data_ptr(), perm.data_ptr()), gid_col.shape[0]),
         ("gs_probe_capacity", 8, 8),
         ("gs_probe_readback", 5, 5),
         ("gs_probe_device_launch", 8, 8),

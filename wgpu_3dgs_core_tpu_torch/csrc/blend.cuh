@@ -1,7 +1,6 @@
 // The blend rules shared by the rasterizer kernels (sm_90a): K3's forward
-// (csrc/rasterize_fwd.cuh, also K9's levels), K4's backward
-// (csrc/rasterize.cu) and the first designs of K3 and K4
-// (csrc/variants.cu), so every one makes the same per-(pixel, fragment)
+// (csrc/rasterize_fwd.cuh, also K9's levels) and K4's backward
+// (csrc/rasterize.cu), so every one makes the same per-(pixel, fragment)
 // decisions bit for bit; and the conservative pixel box K3 and K4 cull
 // with (frag_pixel_box). The rules are render/reference.py's and
 // wgpu_3dgs_core_tpu/ops/rasterize.py:149-164's; the stream is f32

@@ -34,17 +34,11 @@
 // too wide for 16 items in shared memory takes the direct kernel, one
 // thread per item on global rows.
 //
-// K8's first design (launch_map_first, kept as a measurement record that
-// only chip_smoke.py and the card tests launch): a block per tile of
-// `block` items, its rows copied in by every thread's cp.async and out by
-// every thread's stores; rows of 4 bytes or less on the direct kernel.
-//
 // ops/kernel_bundle.py generates one small .cu per bundle signature: the
 // layout's feature macros, `#include`s of gaussian.cuh and this header,
 // the bundle's constants as constexpr values, the user's __device__
 // function, a functor calling it, and one extern "C" entry that calls
-// gs::launch_map (or gs::launch_map_first) and returns the launch's CUDA
-// error.
+// gs::launch_map and returns the launch's CUDA error.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -369,68 +363,6 @@ inline int launch_map(int count, int block, int tile, void* stream,
     return static_cast<int>(cudaGetLastError());
   }
   const int grid = (count + block - 1) / block;
-  bundle_map_kernel<Fn, R...><<<grid, block, 0, s>>>(count, rows...);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------ K8's first design (a record)
-
-template <typename Fn, typename... R, size_t... I>
-__device__ __forceinline__ void staged_map_first(int count,
-                                                 std::index_sequence<I...>,
-                                                 R... rows) {
-  extern __shared__ __align__(128) unsigned char first_smem[];
-  unsigned char* smem = first_smem;
-  constexpr int kTiles = sizeof...(R);
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x;
-  const int items =
-      static_cast<int>(min(static_cast<long long>(blockDim.x), count - first));
-  const long long bytes[kTiles] = {rows.row_bytes() * items...};
-  long long off[kTiles];
-  long long at = 0;
-  for (int k = 0; k < kTiles; ++k) {
-    off[k] = at;
-    at += round16(bytes[k]);
-  }
-  (stage_in(rows, smem + off[I], first, bytes[I]), ...);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  if (threadIdx.x < items) {
-    Fn()((reinterpret_cast<typename R::elem*>(smem + off[I]) +
-          threadIdx.x * rows.width)...);
-  }
-  __syncthreads();
-  (stage_out(rows, smem + off[I], first, bytes[I]), ...);
-}
-
-template <typename Fn, typename... R>
-__global__ void bundle_staged_first_kernel(int count, R... rows) {
-  staged_map_first<Fn>(count, std::index_sequence_for<R...>{}, rows...);
-}
-
-// The first design's launch: a block of `block` items a tile, staged
-// where some row is wider than 4 bytes and the tile fits, else direct.
-template <typename Fn, typename... R>
-inline int launch_map_first(int count, int block, void* stream, R... rows) {
-  static LaunchState state[kMaxDevices];
-  const int grid = (count + block - 1) / block;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((false || ... || (rows.row_bytes() > 4))) {
-    const long long smem = staged_bytes(block, rows...);
-    int device = 0;
-    cudaError_t err = current_device(&device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    bool fits = false;
-    err = allow_smem(state[device], bundle_staged_first_kernel<Fn, R...>,
-                     device, smem, &fits);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (fits) {
-      bundle_staged_first_kernel<Fn, R...>
-          <<<grid, block, static_cast<size_t>(smem), s>>>(count, rows...);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
   bundle_map_kernel<Fn, R...><<<grid, block, 0, s>>>(count, rows...);
   return static_cast<int>(cudaGetLastError());
 }

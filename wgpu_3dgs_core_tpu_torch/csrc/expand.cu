@@ -42,12 +42,12 @@
 // carried over.
 //
 // Design of K7: K7 writes only 8 B a slot, so a ~20-load binary search
-// per slot over the whole table (its first design, kept in variants.cu)
-// took 4x its bound. Each block now takes a fixed stretch of the merge of
-// the row offsets with the slots (a load-balancing search): two warps
-// find the stretch's ends with 32-ary searches, the block loads the
-// offsets of the rows it meets into shared memory with coalesced reads,
-// and each thread finds its slots' owners there and writes coalesced.
+// per slot over the whole table (its first design) took 4x its bound.
+// Each block now takes a fixed stretch of the merge of the row offsets
+// with the slots (a load-balancing search): two warps find the stretch's
+// ends with 32-ary searches, the block loads the offsets of the rows it
+// meets into shared memory with coalesced reads, and each thread finds
+// its slots' owners there and writes coalesced.
 // Rows with no slots take merge steps too, so a mostly culled table still
 // bounds each block's work. ops/expand.py::merge_path_partition_plain
 // mirrors the partition for the CPU tests.

@@ -61,9 +61,7 @@
 // them. Reducing one fragment at a time keeps K4 at 64 registers; three
 // at once took 127 and halved the resident blocks (PERF.md). K3's body
 // lives in rasterize_fwd.cuh, templated on the levels of K9, which
-// compiles the same source for its levels (csrc/variants.cu). The first
-// designs of K3 (no cull) and K4 are variants.cu's rasterize_fwd_first_
-// kernel and rasterize_bwd_first_kernel, kept as measurement records.
+// compiles the same source for its levels (csrc/variants.cu).
 
 #include "blend.cuh"
 #include "common.cuh"

@@ -50,9 +50,7 @@
 // clearing) instead of a binary search, and zeroes the output: rows no
 // run reaches (live gaussians with no drawn slot, the sentinel rows) stay
 // zeros. Both kernels live in segsum.cuh, templated on the levels of K10,
-// which compiles the same source for its levels (csrc/variants.cu); K5's
-// first design (a warp per row) is variants.cu's
-// segment_sums_first_kernel, kept as a measurement record.
+// which compiles the same source for its levels (csrc/variants.cu).
 //
 // K6 runs one thread per original gaussian with K1's owner search over
 // the gid column. Every output slot is written. The TPU version's one-hot

@@ -208,13 +208,10 @@ def _config_lines(config) -> list[str]:
 
 def bundle_source(kernel: BundleKernel, in_dtypes: Sequence[torch.dtype],
                   out_dtypes: Sequence[torch.dtype],
-                  constants: Mapping[str, Any], config=None,
-                  first: bool = False) -> str:
+                  constants: Mapping[str, Any], config=None) -> str:
     """The CUDA source of one bundle signature: the layout's feature
     macros, the device library and csrc/bundle.cuh, the constants, the
-    kernel's source, and one ``extern "C"`` entry launching the map
-    (``first``: K8's first design, a measurement record, whose entry
-    takes no tile plan).
+    kernel's source, and one ``extern "C"`` entry launching the map.
 
     It depends on the kernel, the element types and the constants and
     config only (not on the count, the row widths, the block size or the
@@ -258,12 +255,10 @@ def bundle_source(kernel: BundleKernel, in_dtypes: Sequence[torch.dtype],
         "}  // namespace",
         "",
         f"GS_EXPORT int {BUNDLE_ENTRY}(int count, int block,",
-        *([] if first else ["    int tile,"]),
+        "    int tile,",
         *(f"    {p}," for p in params),
         "    void* stream) {",
-        ("  return gs::launch_map_first<gs_bundle_item>(count, block, stream,"
-         if first else
-         "  return gs::launch_map<gs_bundle_item>(count, block, tile, stream,"),
+        "  return gs::launch_map<gs_bundle_item>(count, block, tile, stream,",
         ",\n".join(f"      {r}" for r in rows) + ");",
         "}",
         "",
@@ -387,18 +382,16 @@ class KernelBundle:
             statics["config"] = self._config
         return statics
 
-    def cuda_source(self, count: int, resources=None,
-                    first: bool = False) -> str:
-        """The generated source of a dispatch of ``count`` items
-        (``first``: of K8's first design)."""
-        return self._source(self._flat(count, resources), first)
+    def cuda_source(self, count: int, resources=None) -> str:
+        """The generated source of a dispatch of ``count`` items."""
+        return self._source(self._flat(count, resources))
 
-    def _source(self, flat, first: bool = False) -> str:
+    def _source(self, flat) -> str:
         return bundle_source(
             self._kernel, [t.dtype for t in flat],
             [o.dtype for o in self._outputs],
             {**_plain_defaults(self._kernel.plain), **self._constants},
-            self._config, first,
+            self._config,
         )
 
     def dispatch(self, count: int, resources: Optional[Sequence] = None):
@@ -451,22 +444,19 @@ class KernelBundle:
                                *(o[rows] for o in outs), **statics)
         return [o[:count] for o in outs]
 
-    def _build_cuda(self, flat, first: bool = False,
-                    launcher: Launcher = KERNEL_BUNDLE):
+    def _build_cuda(self, flat):
         """Generate, build (or find built) and bind the entry of this
-        signature (``first``: of K8's first design, counted by
-        ``launcher``); returns its runner. The runner keeps, per row
-        widths, the arguments ahead of the pointers: the block and the
-        tile's items."""
+        signature; returns its runner. The runner keeps, per row widths,
+        the arguments ahead of the pointers: the block and the tile's
+        items."""
         if self._kernel.cuda is None:
             raise MissingKernelError(
                 f"{self.label}: bundle kernel has no CUDA source; CUDA "
                 "tensors need one (there is no plain fallback)")
-        (info,) = cuda.build_sources([self._source(flat, first)])
+        (info,) = cuda.build_sources([self._source(flat)])
         lib = cuda.bundle_library(info.path)
         outputs = self._outputs
-        argtypes = ([I, I] + [I] * (not first)
-                    + [P, L] * (len(flat) + len(outputs)))
+        argtypes = [I, I, I] + [P, L] * (len(flat) + len(outputs))
         fn = cuda.bind(lib, BUNDLE_ENTRY, argtypes)
         block = self.block_size
         out_bytes = [o.width * o.dtype.itemsize for o in outputs]
@@ -476,7 +466,7 @@ class KernelBundle:
             widths = tuple(t.shape[1] for t in flat)
             head = heads.get(widths)
             if head is None:
-                head = heads[widths] = (block,) if first else (
+                head = heads[widths] = (
                     block, tile_plan([w * t.element_size()
                                       for w, t in zip(widths, flat)]
                                      + out_bytes, block))
@@ -488,7 +478,7 @@ class KernelBundle:
                 args += (t.data_ptr(), w)
             for t, o in zip(outs, outputs):
                 args += (t.data_ptr(), o.width)
-            launcher.call(fn, lib, *args, work=count, device=dev)
+            KERNEL_BUNDLE.call(fn, lib, *args, work=count, device=dev)
             return outs
 
         return run

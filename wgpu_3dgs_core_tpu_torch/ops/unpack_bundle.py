@@ -99,17 +99,15 @@ UNPACK_GAUSSIANS = BundleKernel(cuda=UNPACK_SOURCE, entry="unpack_gaussian",
 
 
 def unpack_source(layout: GaussianLayout,
-                  mt: ModelTransform = ModelTransform(),
-                  first: bool = False) -> str:
+                  mt: ModelTransform = ModelTransform()) -> str:
     """The CUDA source :func:`unpack_bundle` generates for a buffer of
-    ``layout``, from the layout alone (to build ahead of the buffers;
-    ``first``: for K8's first design)."""
+    ``layout``, from the layout alone (to build ahead of the buffers)."""
     packed = [np.float32, np.uint8, layout.sh_dtype, layout.cov3d_dtype]
     in_dtypes = [torch.from_numpy(np.zeros(0, dt)).dtype
                  for dt in packed if dt is not None]
     return bundle_source(UNPACK_GAUSSIANS, in_dtypes,
                          [torch.float32] * len(OUTPUT_WIDTHS),
-                         model_constants(mt), layout, first)
+                         model_constants(mt), layout)
 
 
 def resources(buffer: GaussiansBuffer) -> list[torch.Tensor]:

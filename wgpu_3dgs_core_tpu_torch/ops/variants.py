@@ -1,5 +1,4 @@
-"""The measurement kernels K9 and K10 and the first designs of K3, K4, K5,
-K7 and K8, with their plain versions.
+"""The measurement kernels K9 and K10, with their plain versions.
 
 K9 (:func:`rasterize_level`, replaces ``tools/bench_kernel_variants.py::
 run_variant``) is K3 stripped level by level, and K10
@@ -38,14 +37,6 @@ first kernel alone: the slot-major copy, the row map, the zeros),
 ``s1_scan`` (the scan over a copy already in key order,
 :func:`level_operand`), ``s2_gather`` (K5) and ``s2_nostage`` (K5 reading
 [9, F] through the permutation, with no staging copy).
-
-The first designs, each one kernel timed in turns with its successor:
-:func:`rasterize_fwd_first` (K3 with no pixel-box cull),
-:func:`rasterize_bwd_first` (K4 before the cull and the reduce-scatter),
-:func:`segment_sums_first` (K5 as a warp per row, two searches and a
-butterfly), :func:`expand_fragments_first` (K7 with a binary search per
-slot over the whole table) and :func:`bundle_dispatch_first` (K8 with one
-block a tile and no overlap).
 """
 
 from __future__ import annotations
@@ -53,14 +44,7 @@ from __future__ import annotations
 import torch
 
 from .binning import TILE_SIZE
-from .cuda import CudaKernel, F, I, Launcher, P, check, on_cpu
-from .expand import (
-    SegmentTable,
-    check_table,
-    empty_tiles,
-    expand_fragments_plain,
-)
-from .kernel_bundle import KernelBundle
+from .cuda import CudaKernel, F, I, P, check, on_cpu
 from .rasterize import (
     ALPHA_CLAMP,
     ALPHA_MIN,
@@ -69,10 +53,8 @@ from .rasterize import (
     _frag_alpha,
     _tile_batches,
     blend_weights,
-    check_bwd_args,
     check_fwd_args,
     frag_pixel_box_plain,
-    rasterize_tiles_bwd_plain,
     rasterize_tiles_fwd_plain,
 )
 from .segreduce import (
@@ -244,117 +226,6 @@ def rasterize_level(name: str, frags, tile_start, tile_len, bg,
     return out
 
 
-# ------------------------------------------------- K3's first design
-
-RASTERIZE_FWD_FIRST = CudaKernel(
-    "rasterize_fwd_first", "gs_rasterize_fwd_first",
-    [P, I, P, P, I, F, F, F, F, I, P],
-)
-
-
-def rasterize_fwd_first(frags, tile_start, tile_len, bg,
-                        cutoff_sq: float = Q_CUTOFF,
-                        mode: int = 0) -> torch.Tensor:
-    """K3's first design (no pixel-box cull: every pixel evaluates every
-    fragment) over K3's arguments. Returns [T, 4, 256] f32, K3's tile; on
-    CPU tensors K3's plain version."""
-    check_fwd_args(frags, tile_start, tile_len)
-    if on_cpu(frags, tile_start, tile_len):
-        return rasterize_tiles_fwd_plain(frags, tile_start, tile_len, bg,
-                                         cutoff_sq, mode)
-    dev = frags.device
-    n_t = tile_start.shape[0]
-    out = torch.empty((n_t, 4, PIX), dtype=torch.float32, device=dev)
-    RASTERIZE_FWD_FIRST.launch(
-        frags.data_ptr(), frags.shape[1], tile_start.data_ptr(),
-        tile_len.data_ptr(), n_t, float(bg[0]), float(bg[1]), float(bg[2]),
-        float(cutoff_sq), int(mode), out.data_ptr(), work=n_t, device=dev,
-    )
-    return out
-
-
-# ------------------------------------------------- K4's first design
-
-RASTERIZE_BWD_FIRST = CudaKernel(
-    "rasterize_bwd_first", "gs_rasterize_bwd_first",
-    [P, I, P, P, P, I, P, P, F, F, F, F, I, P],
-)
-
-
-def rasterize_bwd_first(frags, tile_start, tile_len, draw_len, out, g_out,
-                        bg, cutoff_sq: float = Q_CUTOFF,
-                        mode: int = 0) -> torch.Tensor:
-    """K4's first design over K4's arguments (as
-    ``ops/rasterize.py::rasterize_tiles_bwd`` takes them). Returns [9, F]
-    f32; on CPU tensors K4's plain version."""
-    check_bwd_args(frags, tile_start, tile_len, draw_len, out, g_out)
-    if on_cpu(frags, tile_start, tile_len, draw_len, out, g_out):
-        return rasterize_tiles_bwd_plain(frags, tile_start, tile_len,
-                                         draw_len, out, g_out, bg, cutoff_sq,
-                                         mode)
-    dev = frags.device
-    dfrag = torch.empty_like(frags)
-    RASTERIZE_BWD_FIRST.launch(
-        frags.data_ptr(), frags.shape[1], tile_start.data_ptr(),
-        tile_len.data_ptr(), draw_len.data_ptr(), tile_start.shape[0],
-        out.data_ptr(), g_out.data_ptr(), float(bg[0]), float(bg[1]),
-        float(bg[2]), float(cutoff_sq), int(mode), dfrag.data_ptr(),
-        work=tile_start.shape[0], device=dev,
-    )
-    return dfrag
-
-
-# ------------------------------------------------- K7's first design
-
-EXPAND_BBOX_FIRST = CudaKernel(
-    "expand_fragments_bbox_first", "gs_expand_bbox_first",
-    [P, I, P, I, I, I, P],
-)
-
-
-def expand_fragments_first(table: SegmentTable, total: torch.Tensor,
-                           f_cap: int, tiles_x: int, t_total: int):
-    """K7's first design (a binary search per slot over the whole table)
-    over K7's arguments (as ``ops/expand.py::expand_fragments`` takes
-    them). Returns (tile, gid) [f_cap] int32; on CPU tensors K7's plain
-    version."""
-    check_table(table, total)
-    if on_cpu(table.ints, table.attrs, total):
-        return expand_fragments_plain(table, total, f_cap, tiles_x, t_total)
-    n = table.ints.shape[1]
-    dev = table.ints.device
-    if n == 0:
-        return empty_tiles(f_cap, t_total, dev)
-    out = torch.empty((2, f_cap), dtype=torch.int32, device=dev)
-    EXPAND_BBOX_FIRST.launch(
-        table.ints.data_ptr(), n, total.data_ptr(), f_cap, tiles_x, t_total,
-        out.data_ptr(), work=f_cap, device=dev,
-    )
-    return out[0], out[1]
-
-
-# ------------------------------------------------- K8's first design
-
-KERNEL_BUNDLE_FIRST = Launcher("kernel_bundle_first")
-
-
-def bundle_dispatch_first(bundle: KernelBundle, count: int,
-                          resources=None):
-    """A bundle's dispatch through K8's first design (a block per tile of
-    ``block_size`` items, no overlap inside a block), on CUDA resources
-    only: its outputs, as :meth:`KernelBundle.dispatch` returns them."""
-    flat = bundle._flat(count, resources)
-    if on_cpu(*flat):
-        raise ValueError("K8's first design runs on CUDA tensors only")
-    key = ("first", flat[0].device, tuple(t.dtype for t in flat))
-    run = bundle._dispatch_cache.get(key)
-    if run is None:
-        run = bundle._dispatch_cache[key] = bundle._build_cuda(
-            flat, first=True, launcher=KERNEL_BUNDLE_FIRST)
-    result = tuple(run(count, flat))
-    return result if len(result) > 1 else result[0]
-
-
 # ------------------------------------------------------------------- K10
 
 # K10's levels, as csrc/segsum.cuh numbers them; s2_gather is K5.
@@ -436,28 +307,3 @@ def segment_sums_level(name: str, keys, perm, grad, gid_col, n: int,
     )
     return out
 
-
-# ------------------------------------------------- K5's first design
-
-SEGMENT_SUMS_FIRST = CudaKernel(
-    "segment_sums_first", "gs_segment_sums_first",
-    [P, P, P, I, P, I, I, P],
-)
-
-
-def segment_sums_first(keys, perm, grad, gid_col, n: int) -> torch.Tensor:
-    """K5's first design (a warp per row of the gid column, two searches
-    for its run, a fixed-order warp butterfly) over K5's arguments.
-    Returns [9, rows] f32, K5's sums in another order; on CPU tensors K5's
-    plain version."""
-    check_segsum_args(keys, perm, grad, gid_col)
-    if on_cpu(keys, perm, grad, gid_col):
-        return segment_sums_sorted_plain(keys, perm, grad, gid_col, n)
-    f, rows = keys.shape[0], gid_col.shape[0]
-    dev = grad.device
-    out = torch.empty((GRAD_ROWS, rows), dtype=torch.float32, device=dev)
-    SEGMENT_SUMS_FIRST.launch(
-        keys.data_ptr(), perm.data_ptr(), grad.data_ptr(), f,
-        gid_col.data_ptr(), rows, n, out.data_ptr(), work=rows, device=dev,
-    )
-    return out

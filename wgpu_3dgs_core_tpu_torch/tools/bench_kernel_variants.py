@@ -25,12 +25,11 @@ wrapped by ``ops/variants.py``), cumulative:
   from ``v6_full`` prices the transcendental.
 
 Levels 0-3 give their per-pixel sum in channel 0 (channels 1-3 zero);
-levels 4-7 a K3 tile [4, 256]. K3's first design (no cull,
-``ops/variants.py::rasterize_fwd_first``) is timed beside them. On a card
-every time is device time (torch.profiler, ``utils/profiling.py::
-kernel_ms``). The TPU tool's MXU levels (``v3_alpha_mxu``,
-``v4``/``v5_cumsum``, ``v6_full_mxuacc``) and ``v9_nosum`` price matmuls
-and lane-tree sums K3 does not do, and have no level here.
+levels 4-7 a K3 tile [4, 256]. On a card every time is device time
+(torch.profiler, ``utils/profiling.py::kernel_ms``). The TPU tool's MXU
+levels (``v3_alpha_mxu``, ``v4``/``v5_cumsum``, ``v6_full_mxuacc``) and
+``v9_nosum`` price matmuls and lane-tree sums K3 does not do, and have no
+level here.
 
     python -m wgpu_3dgs_core_tpu_torch.tools.bench_kernel_variants \\
         [--gaussians 1000000] [--width 1920] [--height 1080] [--device cuda]
@@ -66,7 +65,6 @@ from ..ops.rasterize import (
 )
 from ..ops.variants import (
     RASTER_LEVELS,
-    rasterize_fwd_first,
     rasterize_level,
     staged_slots,
     warp_pixels,
@@ -245,8 +243,8 @@ def cull_counts(frags, tile_start, draw_len, cutoff_sq: float = Q_CUTOFF,
 
 def run(frags, tile_start, tile_len, bg, cutoff_sq: float = Q_CUTOFF,
         mode: int = 0, iters: int = 10, warmup: int = 2) -> dict:
-    """Time every level and K3's first design on one stream. Returns, per
-    level, ms, us per tile and the step from the level before (ms)."""
+    """Time every level on one stream. Returns, per level, ms, us per
+    tile and the step from the level before (ms)."""
     n_t = tile_start.shape[0]
     result: dict = {"device": device_name(frags.device), "tiles": n_t,
                     "fragments": int(tile_len.sum()), "levels": {}}
@@ -260,9 +258,6 @@ def run(frags, tile_start, tile_len, bg, cutoff_sq: float = Q_CUTOFF,
             "step_ms": None if prev is None else ms - prev,
         }
         prev = ms
-    result["first_design_ms"] = kernel_ms(
-        "rasterize_fwd_first", rasterize_fwd_first, *args, iters=iters,
-        warmup=warmup)
     return result
 
 
@@ -271,7 +266,6 @@ def print_levels(result: dict) -> None:
         step = "" if r["step_ms"] is None else f"  (step {r['step_ms']:+.4f})"
         print(f"{name:>10s}: {r['ms']:8.4f} ms  {r['us_per_tile']:.4f} "
               f"us/tile{step}", flush=True)
-    print(f"first design: {result['first_design_ms']:.4f} ms", flush=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

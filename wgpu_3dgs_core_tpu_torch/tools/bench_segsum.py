@@ -17,10 +17,9 @@ instantiations of K5's own source (``csrc/segsum.cuh``, wrapped by
 - ``s2_nostage``: ``s2_gather`` reading [9, F] through the permutation,
   with no staging copy: its step from ``s2_gather`` prices the copy.
 
-K5's first design (``ops/variants.py::segment_sums_first``: a warp per
-row, two searches, a fixed butterfly) and ``torch.segment_reduce`` over the
-same data, the library's yardstick, are timed beside them. On a card every
-time is device time (torch.profiler, ``utils/profiling.py::kernel_ms``).
+``torch.segment_reduce`` over the same data, the library's yardstick, is
+timed beside them. On a card every time is device time (torch.profiler,
+``utils/profiling.py::kernel_ms``).
 
 :func:`hard_streams` gives the streams K5's design finds hard.
 
@@ -45,7 +44,6 @@ from ..ops.segreduce import GRAD_ROWS, SEGSUM_CHUNK
 from ..ops.variants import (
     SEGSUM_LEVELS,
     level_operand,
-    segment_sums_first,
     segment_sums_level,
 )
 from ..utils.profiling import device_name, kernel_ms
@@ -155,9 +153,8 @@ def segment_reduce_call(keys, perm, grad, gid_col, n: int):
 
 def run(keys, perm, grad, gid_col, n: int, iters: int = 10,
         warmup: int = 2) -> dict:
-    """Time every level, K5's first design and ``segment_reduce`` on one
-    stream. Returns, per level, ms, us per row and the step from the level
-    before (ms)."""
+    """Time every level and ``segment_reduce`` on one stream. Returns,
+    per level, ms, us per row and the step from the level before (ms)."""
     rows = gid_col.shape[0]
     result: dict = {"device": device_name(grad.device), "f": keys.shape[0],
                     "rows": rows, "levels": {}}
@@ -171,9 +168,6 @@ def run(keys, perm, grad, gid_col, n: int, iters: int = 10,
             "step_ms": None if prev is None else ms - prev,
         }
         prev = ms
-    result["first_design_ms"] = kernel_ms(
-        "segment_sums_first", segment_sums_first, keys, perm, grad, gid_col,
-        n, iters=iters, warmup=warmup)
     lib = segment_reduce_call(keys, perm, grad, gid_col, n)
     result["segment_reduce_ms"] = kernel_ms("segment_reduce", lib,
                                             iters=iters, warmup=warmup)
@@ -185,9 +179,7 @@ def print_levels(result: dict) -> None:
         step = "" if r["step_ms"] is None else f"  (step {r['step_ms']:+.4f})"
         print(f"{name:>10s}: {r['ms']:8.4f} ms  {r['us_per_row']:.5f} us/row"
               f"{step}", flush=True)
-    print(f"first design: {result['first_design_ms']:.4f} ms; "
-          f"segment_reduce: {result['segment_reduce_ms']:.4f} ms",
-          flush=True)
+    print(f"segment_reduce: {result['segment_reduce_ms']:.4f} ms", flush=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -8,8 +8,7 @@ several blocks, one row owning more slots than a block takes, no slot at
 all, a capacity every slot of which is live, a capacity that is not a
 multiple of a block, and the bench scene's table shape at 1/16 scale. The
 CPU tests hold the partition's mirror to ``searchsorted`` on them, and
-the card tests and ``chip_smoke.py`` hold K7 to its plain version and to
-its first design.
+the card tests and ``chip_smoke.py`` hold K7 to its plain version.
 """
 
 from __future__ import annotations
