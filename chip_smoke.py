@@ -13,8 +13,13 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
 2. hold each forward kernel against its plain torch version on the card,
    on a mid scene (65,536 gaussians, 512x512): K1 and K2 bit for bit, K1's
    row-table form (ops/binning.py::expand_row_table, the render path's
-   K1) bit for bit row_table(expand_rows_plain(...)), K3 within 3e-5 (the
-   card's exp and FMA contraction differ from torch's);
+   K1) bit for bit row_table(expand_rows_plain(...)), K2's record form
+   (ops/expand.py::expand_fragment_records, the render path's K2) and K14
+   (ops/binning.py::sorted_fetch) bit for bit their plain versions, what
+   they replace (K2's row form transposed; its [10, F] gather through the
+   tile sort's permutation, tile_local_stream and the gid cast) and their
+   last launch, K3 within 3e-5 (the card's exp and FMA contraction differ
+   from torch's);
 3. hold the forward slice (render_gaussians through the kernels) against
    the brute-force reference renderer on the card (2,500 gaussians,
    256x192) within 1e-4 max abs: the tiled and brute-force renderers sum
@@ -28,6 +33,8 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, one line each:
    pays, the wrapper's host work included) and its plain version; K1's
    row-table form bit for bit its composition there too, and its device
    ms in turns with K1's row stream + row_table (median of 3 device_ms);
+   K2's record form and K14 checked as in phase 2, and K14's device ms in
+   turns with the gather + tile_local_stream + cast it replaces;
 5. profile the bench-scene forward: host enqueue time against wall time
    of back-to-back forwards, and torch.profiler's device kernels per
    forward (count, time, time by kind);
@@ -288,6 +295,9 @@ from wgpu_3dgs_core_tpu_torch.ops.binning import (  # noqa: E402
     padded_capacity,
     row_capacity,
     row_table,
+    sorted_fetch,
+    sorted_fetch_plain,
+    tile_local_stream,
 )
 from wgpu_3dgs_core_tpu_torch.ops.projection import (  # noqa: E402
     camera_position,
@@ -295,7 +305,6 @@ from wgpu_3dgs_core_tpu_torch.ops.projection import (  # noqa: E402
 )
 from wgpu_3dgs_core_tpu_torch.render.renderer import (  # noqa: E402
     project_and_color,
-    tile_local_stream,
     unpack_gaussians,
 )
 from wgpu_3dgs_core_tpu_torch.tools import (  # noqa: E402
@@ -491,8 +500,9 @@ def kernel_times(kernel, plain, library=None):
 
 def kernel_inputs(args, cam, max_fragments, max_rows, pad_slack, sh_deg=3,
                   background=BG):
-    """The inputs render() hands K1, K2 and K3, made by the port's own
-    stages with render()'s capacities."""
+    """The inputs render() hands K1, K2, K14 and K3, made by the port's
+    own stages with render()'s capacities; K14's are K2's record form's
+    records and the tile sort of its tiles."""
     means, cov6, color, opac, sh = args
     tiles_x, tiles_y = num_tiles(cam.width, cam.height)
     f_cap = -(-max_fragments // CHUNK) * CHUNK
@@ -506,16 +516,19 @@ def kernel_inputs(args, cam, max_fragments, max_rows, pad_slack, sh_deg=3,
     r_cap = row_capacity(max_rows)
     rows = ex.expand_rows(table, total_rows, r_cap)
     rtab, total = row_table(rows, total_rows)
-    stream, attrs_sorted, _ = bin_splats_attrs(
+    stream, frags, _ = bin_splats_attrs(
         splats.xy, splats.extent, splats.depth, splats.mask, attr_cols,
         tiles_x, tiles_y, f_cap, max_rows=max_rows,
     )
     t_total = tiles_x * tiles_y
     sched = pad_schedule(stream, padded_capacity(f_cap, t_total, pad_slack))
-    frags = tile_local_stream(attrs_sorted, stream.tile_id, tiles_x)
+    tile, records = ex.expand_fragment_records(rtab, total, f_cap, tiles_x,
+                                               t_total)
+    tile_sorted, perm = torch.sort(tile, stable=True)
     return dict(
         k1=(table, total_rows, r_cap),
         k2=(rtab, total, f_cap, tiles_x, t_total),
+        k14=(records, perm, tile_sorted, tiles_x, t_total),
         k3=(frags, stream.tile_start, sched.draw_len, background, 9.0, 0),
         total_rows=total_rows, total=total, stream=stream, sched=sched,
         table=table, background=background,
@@ -603,6 +616,56 @@ def compare_expand(inp):
                   float((kt.ints.long() - pt.ints.long()).abs().max()))
     return (float((k1.attrs - p1.attrs).abs().max()), e_table,
             float((k2[2] - p2[2]).abs().max()))
+
+
+def fetch_before(fetched, k14):
+    """The render path's fragment side before K14: K2's [A + 1, F] form
+    ``fetched`` gathered through the tile sort's permutation,
+    tile_local_stream and the gid row's cast (the row form's tiles are
+    the record form's, so the sort is K14's)."""
+    perm, tile_sorted, tiles_x = k14[1], k14[2], k14[3]
+    attrs_sorted = fetched[:, perm]
+    return (tile_local_stream(attrs_sorted, tile_sorted, tiles_x),
+            attrs_sorted[ex.RECORD_ATTRS].to(torch.int32))
+
+
+def compare_fetch(inp, stream=None, frags=None):
+    """K2's record form and K14 against their plain versions, bit for bit,
+    and against what they replace (K2's [A + 1, F] form transposed; the
+    gather, tile_local_stream and the cast), two launches of each alike;
+    where given, bin_splats_attrs's gid and stream ``frags`` are K14's.
+    Returns each one's max abs difference from its plain version (0 when
+    equal)."""
+    k2, k14 = inp["k2"], inp["k14"]
+    tile, rec = ex.expand_fragment_records(*k2)
+    p_tile, p_rec = ex.expand_fragment_records_plain(*k2)
+    r_tile, r_gid, r_attrs = ex.expand_fragments_with_attrs(*k2)
+    again = ex.expand_fragment_records(*k2)
+    if not (torch.equal(tile, p_tile) and torch.equal(bits(rec), bits(p_rec))
+            and torch.equal(tile, r_tile) and torch.equal(tile, again[0])
+            and torch.equal(bits(rec), bits(again[1]))):
+        fail("K2 expand_fragment_records differs from its plain version or "
+             "from its last launch")
+    if not (torch.equal(bits(rec[:, :ex.RECORD_ATTRS]),
+                        bits(r_attrs[:ex.RECORD_ATTRS].T))
+            and torch.equal(bits(rec[:, ex.RECORD_GID]), r_gid)
+            and not rec[:, ex.RECORD_GID + 1:].any()):
+        fail("K2 expand_fragment_records is not the row form transposed")
+    got = sorted_fetch(*k14)
+    want = sorted_fetch_plain(*k14)
+    old = fetch_before(r_attrs, k14)
+    for name, other in (("its plain version", want), ("its last launch",
+                                                      sorted_fetch(*k14)),
+                        ("the gather, tile_local_stream and cast", old)):
+        if not (torch.equal(bits(got[0]), bits(other[0]))
+                and torch.equal(got[1], other[1])):
+            fail(f"K14 sorted_fetch differs from {name}")
+    if stream is not None and not (
+            torch.equal(bits(frags), bits(got[0]))
+            and torch.equal(stream.gauss_id, got[1])):
+        fail("bin_splats_attrs's stream is not K14's")
+    return {"expand_fragment_records": float((rec - p_rec).abs().max()),
+            "sorted_fetch": float((got[0] - want[0]).abs().max())}
 
 
 def compare_k3(inp, tiles=None) -> float:
@@ -707,12 +770,15 @@ def phase_kernels(mid):
     cfg = MID
     inp = mid[3]
     e1, et, e2 = compare_expand(inp)
+    e_fetch = compare_fetch(inp, inp["stream"], inp["k3"][0])
     e3 = compare_k3(inp)
     print(f"phase 2 kernels vs plain ({cfg['n']} gaussians, "
           f"{cfg['width']}x{cfg['height']}, {int(inp['total'])} fragments): "
-          f"K1 bit-identical (both forms), K2 bit-identical, K3 max abs err "
-          f"{e3:.3g} (tol {K3_TOL})", flush=True)
-    return e1, et, e2, e3
+          f"K1 bit-identical (both forms), K2 bit-identical (both forms), "
+          f"K14 bit-identical (and the gather + tile_local_stream + cast "
+          f"it replaces), K3 max abs err {e3:.3g} (tol {K3_TOL})",
+          flush=True)
+    return (e1, et, e2, e3), e_fetch
 
 
 def phase_spec(device):
@@ -767,6 +833,7 @@ def phase_full(device, errs, scene):
     inp = kernel_inputs(args, cam, max_fragments, max_rows, pad_slack,
                         background=kw["background"])
     e1, et, e2 = compare_expand(inp)
+    e_fetch = compare_fetch(inp, inp["stream"], inp["k3"][0])
     lens = inp["k3"][2]
     densest = int(torch.argmax(lens))
     rng = np.random.default_rng(0)
@@ -794,7 +861,7 @@ def phase_full(device, errs, scene):
     rows, frags = int(inp["total_rows"]), int(inp["total"])
 
     fwd_ms = cuda_ms(forward)
-    k1, k2, k3 = inp["k1"], inp["k2"], inp["k3"]
+    k1, k2, k3, k14 = inp["k1"], inp["k2"], inp["k3"], inp["k14"]
     ms = {
         "expand_rows": kernel_times(lambda: ex.expand_rows(*k1),
                                     lambda: ex.expand_rows_plain(*k1)),
@@ -804,6 +871,11 @@ def phase_full(device, errs, scene):
         "expand_fragments": kernel_times(
             lambda: ex.expand_fragments_with_attrs(*k2),
             lambda: ex.expand_fragments_with_attrs_plain(*k2)),
+        "expand_fragment_records": kernel_times(
+            lambda: ex.expand_fragment_records(*k2),
+            lambda: ex.expand_fragment_records_plain(*k2)),
+        "sorted_fetch": kernel_times(lambda: sorted_fetch(*k14),
+                                     lambda: sorted_fetch_plain(*k14)),
         "rasterize_fwd": kernel_times(
             lambda: ra.rasterize_tiles_fwd(*k3),
             lambda: ra.rasterize_tiles_fwd_plain(*k3)),
@@ -813,6 +885,13 @@ def phase_full(device, errs, scene):
         "expand_rows + row_table": lambda: row_table(ex.expand_rows(*k1),
                                                      k1[1]),
     })
+    fetched = ex.expand_fragments_with_attrs(*k2)[2]
+    fetch_turns = in_turns({
+        "sorted_fetch": lambda: sorted_fetch(*k14),
+        "gather + tile_local_stream + cast": lambda: fetch_before(fetched,
+                                                                  k14),
+    })
+    del fetched
     mpix = cfg["width"] * cfg["height"] / fwd_ms / 1e3
     print(f"phase 4 full slice ({cfg['n']} gaussians, {cfg['width']}x"
           f"{cfg['height']}, sh_deg 3, pad_slack {pad_slack}): capacities "
@@ -824,9 +903,12 @@ def phase_full(device, errs, scene):
           + ", ".join(f"{k} {t[0]:.4f}/{t[3]:.4f}/{t[1]:.3f}"
                       for k, t in ms.items())
           + "; K1's row table in turns (device ms, median of 3): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in row_turns.items()),
-          flush=True)
-    return ms, errs, forward, fwd_ms, inp
+          + ", ".join(f"{k} {v:.4f}" for k, v in row_turns.items())
+          + "; K14 in turns: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in fetch_turns.items())
+          + "; K2's record form and K14 bit for bit their plain versions "
+          "and what they replace, two launches alike", flush=True)
+    return ms, errs, e_fetch, forward, fwd_ms, inp
 
 
 def ms_by_kind(fn):
@@ -1076,6 +1158,15 @@ def kernel_bounds(inp, bi):
         "expand_fragments": bound(
             f32 * ((ex.TAB_ROWS + rtab.attrs.shape[0]) * rows + 1)
             + f32 * (2 + rtab.attrs.shape[0] + 1) * f_cap, 0),
+        # The row form's reads; the tile and the 48-B record a slot.
+        "expand_fragment_records": bound(
+            f32 * ((ex.TAB_ROWS + rtab.attrs.shape[0]) * rows + 1)
+            + f32 * (1 + ex.RECORD_WIDTH) * f_cap, 0),
+        # A live slot reads its permutation entry, tile and record (8 + 4
+        # + 48 B), a padding slot the first two; each writes its 9 floats
+        # and gid (40 B).
+        "sorted_fetch": bound((8 + 4 + 40) * f_cap + f32 * ex.RECORD_WIDTH
+                              * min(int(total), f_cap), 0),
         "rasterize_fwd": bound(
             ra.FRAG_ROWS * f32 * drawn + 2 * f32 * t_total + pix_block,
             EVAL_FLOPS * evaluated + K3_BLEND_FLOPS * blended),
@@ -1131,10 +1222,11 @@ def phase_train(device, scene, inp, fwd_ms, errs):
     reset_launch_counts()
     res, loss, grads = step()
     torch.cuda.synchronize(device)
-    # K1's row-stream form is reported as counted: the step runs its
-    # row-table form.
+    # K1's row-stream form and K2's row form are reported as counted: the
+    # step runs K1's row-table form and K2's record form.
     launches = {k: v for k, v in launch_counts().items()
-                if k in ("expand_rows",) + RENDER_KERNELS + SH_KERNELS}
+                if k in ("expand_rows", "expand_fragments") + RENDER_KERNELS
+                + SH_KERNELS}
     if min(launches.get(k, 0) for k in RENDER_KERNELS + SH_KERNELS) < 1:
         fail(f"a kernel of the training step did not run: {launches}")
     if bool(res.overflow):
@@ -2332,7 +2424,8 @@ def check_spz_render(device, decoded, layout, cam, kw_base):
     launches = {k: v for k, v in launch_counts().items()
                 if k in FORWARD_KERNELS + ("kernel_bundle",)}
     if any(v != 1 for v in launches.values()):
-        fail(f"SPZ scene {layout}: K1-K3 and K8 did not launch once each: "
+        fail(f"SPZ scene {layout}: K1-K3, K14 and K8 did not launch once "
+             f"each: "
              f"{launches}")
     if bool(res.overflow):
         fail(f"SPZ scene {layout}: the render overflowed its capacities")
@@ -2560,12 +2653,17 @@ def phase_data_tools(card: str):
           + f", K1-K6 launched on every rank; {card}", flush=True)
 
 
-FORWARD_KERNELS = ("expand_row_table", "expand_fragments", "rasterize_fwd")
+FORWARD_KERNELS = ("expand_row_table", "expand_fragment_records",
+                   "sorted_fetch", "rasterize_fwd")
 RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
                                     "uncompact")
 SH_KERNELS = ("sh_color_fwd", "sh_color_bwd")  # K12, with SH only
+# The kernels whose errors phases 2-8 carry in order, K2's row form and K1's
+# row-stream form among them (the render path runs neither).
+ERR_KERNELS = ("expand_rows", "expand_row_table", "expand_fragments",
+               "rasterize_fwd", "rasterize_bwd", "segment_sums", "uncompact")
 TOOL_KERNELS = {
-    "bin": FORWARD_KERNELS[:2],
+    "bin": FORWARD_KERNELS[:3],
     "gather": ("rasterize_fwd",),
     "kernel_fwd": ("rasterize_fwd",),
     "kernel_fwd_bwd": ("rasterize_fwd", "rasterize_bwd"),
@@ -2573,6 +2671,8 @@ TOOL_KERNELS = {
     "step": RENDER_KERNELS,
     "rows": ("expand_row_table",),
     "expand": FORWARD_KERNELS[:2],
+    "sort": FORWARD_KERNELS[:3],
+    "ranges": FORWARD_KERNELS[:3],
 }
 KERNELS = (
     ("expand_rows", "wgpu_3dgs_core_tpu_torch/csrc/expand.cu",
@@ -2581,6 +2681,9 @@ KERNELS = (
      "wgpu_3dgs_core_tpu/ops/expand.py:571"),
     ("expand_fragments", "wgpu_3dgs_core_tpu_torch/csrc/expand.cu",
      "wgpu_3dgs_core_tpu/ops/expand.py:202"),
+    ("expand_fragment_records", "wgpu_3dgs_core_tpu_torch/csrc/expand.cu",
+     "wgpu_3dgs_core_tpu/ops/expand.py:202"),
+    ("sorted_fetch", "wgpu_3dgs_core_tpu_torch/csrc/expand.cu", None),
     ("rasterize_fwd", "wgpu_3dgs_core_tpu_torch/csrc/rasterize.cu",
      "wgpu_3dgs_core_tpu/ops/rasterize.py:294"),
     ("rasterize_bwd", "wgpu_3dgs_core_tpu_torch/csrc/rasterize.cu",
@@ -2609,10 +2712,11 @@ def run(device: torch.device, card: str):
     cases = bundle_cases(device)
     phase_build(bundle_sources(cases))
     mid = mid_scene(device)
-    errs = phase_kernels(mid)
+    errs, errs_fetch = phase_kernels(mid)
     phase_spec(device)
     scene = bench_scene(device)
-    ms, errs, forward, fwd_ms, inp = phase_full(device, errs, scene)
+    ms, errs, e_fetch, forward, fwd_ms, inp = phase_full(device, errs, scene)
+    errs_fetch = {k: max(v, e_fetch[k]) for k, v in errs_fetch.items()}
     phase_profile(forward, "5", "forward")
     errs = errs + phase_backward_kernels(device, mid)
     phase_spec_grads(device)
@@ -2629,7 +2733,7 @@ def run(device: torch.device, card: str):
           f"{counts['evaluated']} evaluated and {counts['blended']} blended "
           f"(fragment, pixel) pairs, {counts['n_live']} gaussians with "
           f"fragments", flush=True)
-    errs = dict(zip(("expand_rows",) + RENDER_KERNELS, errs), **errs_sh)
+    errs = dict(zip(ERR_KERNELS, errs), **errs_sh, **errs_fetch)
     errs["kernel_bundle"] = phase_bundles(cases)
     (launches["kernel_bundle"], err8, ms["kernel_bundle"],
      bounds["kernel_bundle"]) = phase_core(device, scene[0])

@@ -39,10 +39,7 @@ from wgpu_3dgs_core_tpu_torch.ops import binning as TB
 from wgpu_3dgs_core_tpu_torch.ops import rasterize as TR
 from wgpu_3dgs_core_tpu_torch.ops import segreduce as TS
 from wgpu_3dgs_core_tpu_torch.ops import transforms as TT
-from wgpu_3dgs_core_tpu_torch.render.renderer import (
-    BinRasterize,
-    tile_local_stream,
-)
+from wgpu_3dgs_core_tpu_torch.render.renderer import BinRasterize
 from wgpu_3dgs_core_tpu_torch.utils.numeric import cast_u8
 
 from .test_rowtrim import H, W, _scene
@@ -131,15 +128,14 @@ def binned():
     agreement with the JAX forward kernel is tested there too."""
     spl, attr = _scene()
     args = [tt(x) for x in (spl.xy, spl.extent, spl.depth, spl.mask, attr)]
-    stream, attrs_sorted, _ = TB.bin_splats_attrs(*args, TX, TY, F_CAP)
+    stream, frags, _ = TB.bin_splats_attrs(*args, TX, TY, F_CAP)
     sched = TB.pad_schedule(stream, F_PAD_CAP)
-    frags = tile_local_stream(attrs_sorted, stream.tile_id, TX)
     tiles = [TR.rasterize_tiles_fwd(frags, stream.tile_start, sched.draw_len,
                                     BG, 9.0, mode) for mode in (0, 1)]
     grp = CHUNK * GROUP
     mat = np.zeros((16, (-(-F_CAP // grp) + 2) * grp), np.float32)
     mat[0:9, :F_CAP] = nn(frags)
-    mat[9, :F_CAP] = nn(attrs_sorted[9])
+    mat[9, :F_CAP] = nn(stream.gauss_id)
     mat[10, :F_CAP] = nn(stream.tile_id)
     mat[10, F_CAP:] = T_TOTAL
     g = np.random.default_rng(5).normal(size=(T_TOTAL, 4, 256))

@@ -159,7 +159,12 @@ def test_bin_splats_attrs_bit_identical(scene, max_fragments, max_rows):
     for name in ("tile_id", "tile_start", "tile_end", "gauss_id"):
         np.testing.assert_array_equal(nn(getattr(ts, name)),
                                       nn(getattr(js, name)), err_msg=name)
-    np.testing.assert_array_equal(nn(ta), np.asarray(ja))
+    # The port returns the tile-local stream of JAX's sorted attributes,
+    # and their gid row as int32.
+    ja = np.asarray(ja)
+    np.testing.assert_array_equal(
+        nn(ta), nn(TB.tile_local_stream(tt(ja), ts.tile_id, TX)))
+    np.testing.assert_array_equal(nn(ts.gauss_id), ja[9].astype(np.int32))
 
 
 @functools.partial(jax.jit, static_argnums=(5, 6))
@@ -221,10 +226,10 @@ def test_rasterize_matches_jax_kernel(scene, f_cap, pad_slack):
 
     # The port's own binning and rasterize_splats on the same splats.
     args = [tt(x) for x in (spl.xy, spl.extent, spl.depth, spl.mask, attr)]
-    stream, attrs_sorted, _ = TB.bin_splats_attrs(*args, TX, TY, f_cap)
-    frags = TRR.tile_local_stream(attrs_sorted, stream.tile_id, TX)
+    stream, frags, _ = TB.bin_splats_attrs(*args, TX, TY, f_cap)
     np.testing.assert_array_equal(nn(frags), mat[0:9, :f_cap])
-    np.testing.assert_array_equal(nn(attrs_sorted[9]), mat[9, :f_cap])
+    np.testing.assert_array_equal(nn(stream.gauss_id),
+                                  mat[9, :f_cap].astype(np.int32))
     np.testing.assert_array_equal(nn(stream.tile_id), tile_sorted)
     xy, extent, depth, mask, a = args
     mine, mine_overflow = TRR.rasterize_splats(

@@ -32,7 +32,6 @@ from wgpu_3dgs_core_tpu_torch.ops.transforms import (
 )
 from wgpu_3dgs_core_tpu_torch.ops.projection import project
 from wgpu_3dgs_core_tpu_torch.ops.transforms import cov3d_from_rot_scale
-from wgpu_3dgs_core_tpu_torch.render.renderer import tile_local_stream
 from wgpu_3dgs_core_tpu_torch.ops import probe as K11
 from wgpu_3dgs_core_tpu_torch.ops import variants as KV
 from wgpu_3dgs_core_tpu_torch.tools.bench_segsum import (
@@ -51,7 +50,8 @@ W, H = 256, 192
 CAM = T.Camera.look_at(eye=(0.0, 0.0, -6.0), target=(0.0, 0.0, 0.0),
                        width=W, height=H, fov_y=0.9)
 BG = (0.1, 0.2, 0.3)
-FORWARD_KERNELS = ("expand_row_table", "expand_fragments", "rasterize_fwd")
+FORWARD_KERNELS = ("expand_row_table", "expand_fragment_records",
+                   "sorted_fetch", "rasterize_fwd")
 RENDER_KERNELS = FORWARD_KERNELS + ("rasterize_bwd", "segment_sums",
                                     "uncompact")
 
@@ -110,12 +110,11 @@ def test_expand_kernels_equal_plain_bit_for_bit(cuda):
 @pytest.mark.parametrize("mode", [0, 1])
 def test_rasterize_kernel_matches_plain(cuda, mode):
     spl, attr, tx, ty = _binned(cuda)
-    stream, attrs_sorted, _ = bin_splats_attrs(
+    stream, frags, _ = bin_splats_attrs(
         spl.xy, spl.extent, spl.depth, spl.mask, attr, tx, ty, 8192,
         opacity_cull=mode != 1,
     )
     sched = pad_schedule(stream, 8192 + tx * ty * 128)
-    frags = tile_local_stream(attrs_sorted, stream.tile_id, tx)
     args = (frags, stream.tile_start, sched.draw_len, BG, 9.0, mode)
     got = TR.rasterize_tiles_fwd(*args)
     want = TR.rasterize_tiles_fwd_plain(*args)
@@ -126,12 +125,11 @@ def _backward_inputs(cuda, mode):
     """K4's, K5's and K6's inputs on the scene's stream, with a random
     cotangent of K3's output."""
     spl, attr, tx, ty = _binned(cuda)
-    stream, attrs_sorted, table = bin_splats_attrs(
+    stream, frags, table = bin_splats_attrs(
         spl.xy, spl.extent, spl.depth, spl.mask, attr, tx, ty, 8192,
         opacity_cull=mode != 1,
     )
     sched = pad_schedule(stream, 8192 + tx * ty * 128)
-    frags = tile_local_stream(attrs_sorted, stream.tile_id, tx)
     out = TR.rasterize_tiles_fwd(frags, stream.tile_start, sched.draw_len,
                                  BG, 9.0, mode)
     g = torch.randn(out.shape, device=cuda,
@@ -203,7 +201,9 @@ def test_render_on_card_matches_cpu_and_counts_launches(cuda):
     res = T.render(*args, CAM, background=BG)
     torch.cuda.synchronize()
     assert T.launch_counts() == {"expand_rows": 0, "expand_row_table": 1,
-                                 "expand_fragments": 1,
+                                 "expand_fragments": 0,
+                                 "expand_fragment_records": 1,
+                                 "sorted_fetch": 1,
                                  "rasterize_fwd": 1, "rasterize_bwd": 0,
                                  "segment_sums": 0, "uncompact": 0,
                                  "expand_fragments_bbox": 0,
@@ -431,12 +431,11 @@ def test_k9_v6_full_equals_k3(cuda, mode):
     of each tile's largest value of its plain version, culled by the
     boxes v0_stage wrote, which are the plain mirror's to one pixel."""
     spl, attr, tx, ty = _binned(cuda)
-    stream, attrs_sorted, _ = bin_splats_attrs(
+    stream, frags, _ = bin_splats_attrs(
         spl.xy, spl.extent, spl.depth, spl.mask, attr, tx, ty, 8192,
         opacity_cull=mode != 1,
     )
     sched = pad_schedule(stream, 8192 + tx * ty * 128)
-    frags = tile_local_stream(attrs_sorted, stream.tile_id, tx)
     args = (frags, stream.tile_start, sched.draw_len, BG, 9.0, mode)
     k3 = TR.rasterize_tiles_fwd(*args)
     boxes = torch.empty(frags.shape[1], dtype=torch.int32, device=cuda)

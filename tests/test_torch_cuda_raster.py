@@ -20,7 +20,6 @@ import torch
 from wgpu_3dgs_core_tpu_torch.ops import rasterize as TR
 from wgpu_3dgs_core_tpu_torch.ops import variants as KV
 from wgpu_3dgs_core_tpu_torch.ops.binning import bin_splats_attrs, pad_schedule
-from wgpu_3dgs_core_tpu_torch.render.renderer import tile_local_stream
 from wgpu_3dgs_core_tpu_torch.tools.bench_kernel_variants import hard_tiles
 
 from .test_torch_cuda import _binned, cuda  # noqa: F401  (the fixture)
@@ -36,11 +35,10 @@ def _scene_stream(device, mode):
     """tests/test_torch_cuda.py's scene binned as the renderer bins it in
     ``mode``: K3's (frags, tile_start, draw_len)."""
     spl, attr, tx, ty = _binned(device)
-    stream, attrs_sorted, _ = bin_splats_attrs(
+    stream, frags, _ = bin_splats_attrs(
         spl.xy, spl.extent, spl.depth, spl.mask, attr, tx, ty, 8192,
         opacity_cull=mode != 1)
     sched = pad_schedule(stream, 8192 + tx * ty * 128)
-    frags = tile_local_stream(attrs_sorted, stream.tile_id, tx)
     return frags, stream.tile_start, sched.draw_len
 
 

@@ -22,7 +22,8 @@ from wgpu_3dgs_core_tpu_torch.utils import native
 pytestmark = pytest.mark.cuda
 
 EXAMPLE_SPZ = Path(__file__).resolve().parents[1] / "examples" / "model.spz"
-FORWARD_KERNELS = ("expand_row_table", "expand_fragments", "rasterize_fwd")
+FORWARD_KERNELS = ("expand_row_table", "expand_fragment_records",
+                   "sorted_fetch", "rasterize_fwd")
 CAM = T.Camera.look_at(eye=(0.0, 0.0, -6.0), target=(0.0, 0.0, 0.0),
                        width=256, height=192, fov_y=0.9)
 BG = (0.1, 0.2, 0.3)

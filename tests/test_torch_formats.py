@@ -159,7 +159,8 @@ def test_cpu_render_launches_no_kernel():
     assert (nn(res.transmittance) < 1).any()
     counts = T.launch_counts()
     assert set(counts) == {"expand_rows", "expand_row_table",
-                           "expand_fragments", "rasterize_fwd",
+                           "expand_fragments", "expand_fragment_records",
+                           "sorted_fetch", "rasterize_fwd",
                            "rasterize_bwd", "segment_sums", "uncompact",
                            "expand_fragments_bbox", "kernel_bundle",
                            "rasterize_variants", "segment_sum_variants",

@@ -53,8 +53,8 @@ PAD_SLACK, SH_DEG = 0.65, 3
 NSCALE_TOL = 1e-5  # normalized by each parameter's largest gradient
 # The renderer's functions recorded as the step calls them.
 RECORDED = ("project_splats", "sh_color", "attribute_columns",
-            "bin_splats_attrs", "pad_schedule", "tile_local_stream",
-            "rasterize_tiles_fwd", "reorder_grads")
+            "bin_splats_attrs", "pad_schedule", "rasterize_tiles_fwd",
+            "reorder_grads")
 
 
 def _same(a, b, what):
@@ -117,14 +117,13 @@ def test_prefix_stage_is_render_pieces(tool_stages, recorded_step, stage):
     if stage == "color":
         return
     assert not bool(out["overflow"])
-    _same((out["stream"], out["attrs_sorted"], out["table"]),
+    _same((out["stream"], out["frags"], out["table"]),
           seen["bin_splats_attrs"], "bin_splats_attrs")
     if stage == "bin":
         return
     _same(out["sched"], seen["pad_schedule"], "pad_schedule")
     if stage == "sched":
         return
-    _same(out["frags"], seen["tile_local_stream"], "tile_local_stream")
     _same(out["tiles"], seen["rasterize_tiles_fwd"], "K3 tiles")
     _same(tool_stages["kernel_fwd"](), seen["rasterize_tiles_fwd"],
           "kernel_fwd")
@@ -163,13 +162,13 @@ def test_bench_bin_stages_are_bin_splats_attrs(setup):
     proj = bench_bin.projection(params, cam, SH_DEG)
     tx, ty = num_tiles(W, H)
     f_cap = stream_capacity(max_fragments)
-    stream, attrs_sorted, table = bin_splats_attrs(
+    stream, frags, table = bin_splats_attrs(
         *(proj[k] for k in ("xy", "extent", "depth", "mask", "attr_cols")),
         tx, ty, f_cap, max_rows=max_rows)
     sched = pad_schedule(stream, padded_capacity(f_cap, tx * ty, PAD_SLACK))
     last = outs["ranges"]
-    _same((last["stream"], last["attrs_sorted"], last["table"],
-           last["sched"]), (stream, attrs_sorted, table, sched), "ranges")
+    _same((last["stream"], last["frags"], last["table"],
+           last["sched"]), (stream, frags, table, sched), "ranges")
     assert not bool(last["overflow"])
     for name, out in outs.items():
         if name == "counts":

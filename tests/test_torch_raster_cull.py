@@ -30,7 +30,6 @@ from wgpu_3dgs_core_tpu.ops import rasterize as JRa
 from wgpu_3dgs_core_tpu.render import reference as JRef
 from wgpu_3dgs_core_tpu_torch.ops import binning as TB
 from wgpu_3dgs_core_tpu_torch.ops import rasterize as TR
-from wgpu_3dgs_core_tpu_torch.render.renderer import tile_local_stream
 from wgpu_3dgs_core_tpu_torch.tools.bench_kernel_variants import (
     HARD_TILES,
     cull_counts,
@@ -102,10 +101,9 @@ def rowtrim_streams():
     tx, ty = TB.num_tiles(W, H)
     out = {}
     for mode in MODES:
-        stream, attrs_sorted, _ = TB.bin_splats_attrs(
+        stream, frags, _ = TB.bin_splats_attrs(
             *args, tx, ty, 8192, opacity_cull=mode != 1)
         assert not bool(stream.overflow)
-        frags = tile_local_stream(attrs_sorted, stream.tile_id, tx)
         sched = TB.pad_schedule(stream, 8192 + tx * ty * 128)
         out[mode] = (frags, stream.tile_start, sched.draw_len)
     return out

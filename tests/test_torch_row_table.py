@@ -373,9 +373,10 @@ def test_kernel_equals_the_composition_at_6_1m(cuda):
     """The bicycle-6m scene (6.1M gaussians) from the view traffic's
     first camera: the kernel's table equals the composition's on the card
     (what the render path ran before) and on the CPU (the spec), ints and
-    attributes bit for bit; bin_splats_attrs's stream and attributes
-    equal those of K1's row stream + row_table + K2 + the tile sort
-    (the render path before), and so do K3's tiles."""
+    attributes bit for bit; bin_splats_attrs's stream, fragments and gid
+    equal those of K1's row stream + row_table + K2 + the tile sort, the
+    gather and tile_local_stream (the render path before), and so do
+    K3's tiles."""
     b = bicycle_inputs(6_100_000, cuda)
     table, total_rows, r_cap = b["table"], b["total_rows"], b["r_cap"]
     got = TB.expand_row_table(table, total_rows, r_cap)
@@ -388,21 +389,21 @@ def test_kernel_equals_the_composition_at_6_1m(cuda):
 
     tx, ty = b["binning"][-2:]
     f_cap = -(-b["max_fragments"] // TB.CHUNK) * TB.CHUNK
-    stream, attrs_sorted, _ = TB.bin_splats_attrs(
+    stream, frags, _ = TB.bin_splats_attrs(
         *b["binning"], f_cap, max_rows=b["max_rows"])
     tile, _, fetched = TE.expand_fragments_with_attrs(
         on_card[0], on_card[1], f_cap, tx, tx * ty)
     tile_sorted, perm = torch.sort(tile, stable=True)
     before = fetched[:, perm]
+    want = TB.tile_local_stream(before, tile_sorted, tx)
     assert not bool(stream.overflow)
     assert torch.equal(stream.tile_id, tile_sorted)
-    assert torch.equal(attrs_sorted.view(torch.int32),
-                       before.view(torch.int32))
+    assert torch.equal(frags.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(stream.gauss_id, before[9].to(torch.int32))
     sched = TB.pad_schedule(stream, TB.padded_capacity(f_cap, tx * ty, 1.0))
     tiles = [TR.rasterize_tiles_fwd(
-        R.tile_local_stream(a, stream.tile_id, tx), stream.tile_start,
-        sched.draw_len, (0.0, 0.0, 0.0), 9.0, 0) for a in (attrs_sorted,
-                                                          before)]
+        f, stream.tile_start, sched.draw_len, (0.0, 0.0, 0.0), 9.0, 0)
+        for f in (frags, want)]
     assert torch.equal(tiles[0].view(torch.int32), tiles[1].view(torch.int32))
 
 

@@ -32,10 +32,7 @@ from wgpu_3dgs_core_tpu.ops import segreduce as JS
 from wgpu_3dgs_core_tpu_torch.ops import binning as TB
 from wgpu_3dgs_core_tpu_torch.ops import segreduce as TS
 from wgpu_3dgs_core_tpu_torch.ops.transforms import cov3d_from_rot_scale
-from wgpu_3dgs_core_tpu_torch.render.renderer import (
-    project_and_color,
-    tile_local_stream,
-)
+from wgpu_3dgs_core_tpu_torch.render.renderer import project_and_color
 from wgpu_3dgs_core_tpu_torch.ops import probe as K11
 from wgpu_3dgs_core_tpu_torch.ops import variants as KV
 from wgpu_3dgs_core_tpu_torch.ops.rasterize import frag_pixel_box_plain
@@ -143,11 +140,10 @@ def small_stream():
         tt(opac), cam)
     attr = torch.cat([spl.xy.T, spl.conic.T, rgb.T, (op * spl.mask)[None]])
     tx, ty = TB.num_tiles(128, 96)
-    stream, attrs_sorted, _ = TB.bin_splats_attrs(
+    stream, frags, _ = TB.bin_splats_attrs(
         spl.xy, spl.extent, spl.depth, spl.mask, attr, tx, ty, 4096)
     sched = TB.pad_schedule(stream, TB.padded_capacity(4096, tx * ty, 1.0))
     assert int(stream.num_fragments) > 300 and not bool(stream.overflow)
-    frags = tile_local_stream(attrs_sorted, stream.tile_id, tx)
     return frags, stream.tile_start, sched.draw_len, (0.1, 0.2, 0.3)
 
 

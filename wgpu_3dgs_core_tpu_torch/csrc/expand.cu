@@ -10,6 +10,16 @@
 //    offset row: the render path's K1.
 // K2 replaces wgpu_3dgs_core_tpu/ops/expand.py::_expand_attr_kernel
 //    (launcher expand_fragments_with_attrs, pl.pallas_call at expand.py:438).
+//    Its record form (launcher ops/expand.py::expand_fragment_records,
+//    the render path's K2) writes each slot's attributes as one 48-B
+//    record for K14.
+// K14 has no TPU counterpart (the JAX package's binning gathers the
+//    attribute rows through the sort's permutation with XLA): it reads
+//    K2's records through the tile sort's permutation and writes the
+//    rasterizer's tile-local [9, F] stream and the int32 gid
+//    (launcher ops/binning.py::sorted_fetch), what the plain version
+//    ops/binning.py::sorted_fetch_plain builds from a row gather,
+//    tile_local_stream and a cast.
 // K7 replaces wgpu_3dgs_core_tpu/ops/expand.py::_expand_kernel
 //    (launcher expand_fragments, pl.pallas_call at expand.py:386): K2's
 //    (dy, dx) decode without attributes, writing only the tile and gid
@@ -28,10 +38,10 @@
 //
 // What bounds them on the card: memory. Each slot writes 56 B (K1: 4 int32
 // + 10 f32; its row-table form 5 int32 + 9 f32, and the cumsum after it
-// the offset's 4 B) or 48 B (K2: 2 int32 + 10 f32) and reads its owner's
-// row; the owner search is a ~log2(n) binary search whose upper levels
-// every warp shares, so it runs out of L1/L2. At 1080p K2 writes ~3M
-// slots, ~140 MB.
+// the offset's 4 B) or 48 B (K2: 2 int32 + 10 f32; its record form 52 B,
+// the tile and the record) and reads its owner's row; the owner search is
+// a ~log2(n) binary search whose upper levels every warp shares, so it
+// runs out of L1/L2. At 1080p K2 writes ~3M slots, ~140 MB.
 //
 // Design of K1 and K2: one thread per output slot over the whole
 // capacity, reading `total` from device memory (no host sync, no
@@ -40,6 +50,16 @@
 // are fully coalesced. The TPU version's one-hot MXU gather, base-256
 // digit tables and bf16 splits existed only for the MXU and are not
 // carried over.
+//
+// Design of K14: a [10, F] row gather through the permutation reads ten
+// scattered 4-B values a slot, one 32-B sector each. K2's record form
+// puts a slot's attributes and gid in one 48-B record, 16-B aligned, so
+// a slot of the sorted stream reads its record with three 16-B loads
+// from two sectors, besides its permutation entry and tile, read
+// coalesced, and writes its ten 4-B values coalesced, 40 B. A padding
+// slot (tile t_total) reads no record: its record is zeros. The tile
+// origin is subtracted in f32, rounded once, as the plain version's
+// torch ops do, so the stream equals theirs bit for bit.
 //
 // Design of K7: K7 writes only 8 B a slot, so a ~20-load binary search
 // per slot over the whole table (its first design) took 4x its bound.
@@ -65,8 +85,19 @@ constexpr int kRowSpanX = 2;
 constexpr int kRowGid = 3;
 constexpr int kRowInts = 4;
 
+// K2's record form (ops/expand.py RECORD_*): the kRecordAttrs blend
+// attributes, the gid's int32 bits, zeros up to kRecordFloats (48 B, three
+// float4).
+constexpr int kRecordAttrs = 9;
+constexpr int kRecordGid = 9;
+constexpr int kRecordFloats = 12;
+constexpr int kRecordVecs = kRecordFloats / 4;
+static_assert(kRecordGid == kRecordAttrs && kRecordFloats % 4 == 0,
+              "K14 reads the attributes, then the gid, from three float4");
+
 // TILE_SIZE and ROW_TRIM_EPS of ops/binning.py.
 constexpr float kTileSize = 16.0f;
+constexpr int kTilePx = 16;
 constexpr float kRowTrimEps = 0.05f;
 
 // The attribute rows the row-table form reads for the interval
@@ -231,6 +262,12 @@ __device__ __forceinline__ int slot_tile(const int* __restrict__ tab, int n,
          __ldg(tab + GS_TAB_X0 * n + g) + dx;
 }
 
+// K2. Row form (kRecord false): out_i [2, cap] (tile, gid), out_f
+// [a_rows + 1, cap] (the attributes, then gid as f32). Record form
+// (kRecord true, a_rows == kRecordAttrs): out_i [cap] (tile), out_f
+// [cap, kRecordFloats] (a record a slot). Slots at or past `total` get
+// tile t_total and zeros.
+template <bool kRecord>
 __global__ void __launch_bounds__(kThreads)
 expand_fragments_kernel(const int* __restrict__ tab,
                         const float* __restrict__ attr, int n, int a_rows,
@@ -241,22 +278,80 @@ expand_fragments_kernel(const int* __restrict__ tab,
   if (s >= cap) return;
   const size_t cs = static_cast<size_t>(cap);
   const int total = __ldg(total_ptr);
+  float rec[kRecordFloats] = {};
   if (s < total) {
     const int* off = tab + GS_TAB_OFF * n;
     const int g = gs_owner(off, n, s);
     const int rank = s - __ldg(off + g);
     const int gid = __ldg(tab + GS_TAB_GID * n + g);
     out_i[s] = slot_tile(tab, n, g, rank, tiles_x);
-    out_i[cs + s] = gid;
-    for (int k = 0; k < a_rows; ++k) {
-      out_f[k * cs + s] = __ldg(attr + static_cast<size_t>(k) * n + g);
+    if constexpr (kRecord) {
+#pragma unroll
+      for (int k = 0; k < kRecordAttrs; ++k) {
+        rec[k] = __ldg(attr + static_cast<size_t>(k) * n + g);
+      }
+      rec[kRecordGid] = __int_as_float(gid);
+    } else {
+      out_i[cs + s] = gid;
+      for (int k = 0; k < a_rows; ++k) {
+        out_f[k * cs + s] = __ldg(attr + static_cast<size_t>(k) * n + g);
+      }
+      out_f[a_rows * cs + s] = static_cast<float>(gid);
     }
-    out_f[a_rows * cs + s] = static_cast<float>(gid);
   } else {
     out_i[s] = t_total;
-    out_i[cs + s] = 0;
-    for (int k = 0; k <= a_rows; ++k) out_f[k * cs + s] = 0.0f;
+    if constexpr (!kRecord) {
+      out_i[cs + s] = 0;
+      for (int k = 0; k <= a_rows; ++k) out_f[k * cs + s] = 0.0f;
+    }
   }
+  if constexpr (kRecord) {
+    float4* dst = reinterpret_cast<float4*>(out_f) +
+                  static_cast<size_t>(s) * kRecordVecs;
+#pragma unroll
+    for (int v = 0; v < kRecordVecs; ++v) {
+      dst[v] = make_float4(rec[4 * v], rec[4 * v + 1], rec[4 * v + 2],
+                           rec[4 * v + 3]);
+    }
+  }
+}
+
+// K14: slot j of the tile-sorted stream from the record at perm[j] (a
+// live slot; a padding slot's record is zeros and is not read): x and y
+// less the origin of tile[j], then the conic, rgb and opacity, into
+// frags [kRecordAttrs, cap], and the gid into gid [cap].
+__global__ void __launch_bounds__(kThreads)
+sorted_fetch_kernel(const float4* __restrict__ rec,
+                    const long long* __restrict__ perm,
+                    const int* __restrict__ tile, int cap, int tiles_x,
+                    int t_total, float* __restrict__ frags,
+                    int* __restrict__ gid) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= cap) return;
+  const size_t cs = static_cast<size_t>(cap);
+  const int t = __ldg(tile + j);
+  float4 v[kRecordVecs];
+#pragma unroll
+  for (int k = 0; k < kRecordVecs; ++k) v[k] = make_float4(0, 0, 0, 0);
+  if (t < t_total) {
+    const float4* r = rec + __ldg(perm + j) * kRecordVecs;
+#pragma unroll
+    for (int k = 0; k < kRecordVecs; ++k) v[k] = __ldg(r + k);
+  }
+  // torch.remainder and floor division of a tile id >= 0 by tiles_x; the
+  // origin, an int below 2^24, is exact in f32.
+  const int row = t / tiles_x;
+  const int col = t - row * tiles_x;
+  frags[j] = __fsub_rn(v[0].x, static_cast<float>(col * kTilePx));
+  frags[cs + j] = __fsub_rn(v[0].y, static_cast<float>(row * kTilePx));
+  frags[2 * cs + j] = v[0].z;
+  frags[3 * cs + j] = v[0].w;
+  frags[4 * cs + j] = v[1].x;
+  frags[5 * cs + j] = v[1].y;
+  frags[6 * cs + j] = v[1].z;
+  frags[7 * cs + j] = v[1].w;
+  frags[8 * cs + j] = v[2].x;
+  gid[j] = __float_as_int(v[2].y);
 }
 
 // K7's blocks: each takes kMergeItems steps of the merge of the table's
@@ -388,9 +483,41 @@ GS_EXPORT int gs_expand_fragments(const int* tab, const float* attr, int n,
                                   int tiles_x, int t_total, int* out_i,
                                   float* out_f, void* stream) {
   const int blocks = (cap + kThreads - 1) / kThreads;
-  expand_fragments_kernel<<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  expand_fragments_kernel<false><<<blocks, kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       tab, attr, n, a_rows, total, cap, tiles_x, t_total, out_i, out_f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tab: int32 [GS_TAB_ROWS, n]; attr: f32 [kRecordAttrs, n]; total: int32
+// [1]; out_tile: int32 [cap]; out_rec: f32 [cap, kRecordFloats], 16-B
+// aligned. cap > 0, as above.
+GS_EXPORT int gs_expand_fragment_records(const int* tab, const float* attr,
+                                         int n, const int* total, int cap,
+                                         int tiles_x, int t_total,
+                                         int* out_tile, float* out_rec,
+                                         void* stream) {
+  const int blocks = (cap + kThreads - 1) / kThreads;
+  expand_fragments_kernel<true><<<blocks, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      tab, attr, n, kRecordAttrs, total, cap, tiles_x, t_total, out_tile,
+      out_rec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rec: f32 [cap, kRecordFloats] (K2's record form), 16-B aligned; perm:
+// int64 [cap], the tile sort's permutation; tile: int32 [cap], the sorted
+// tiles; frags: f32 [kRecordAttrs, cap]; gid: int32 [cap]. cap > 0, as
+// above.
+GS_EXPORT int gs_sorted_fetch(const float* rec, const long long* perm,
+                              const int* tile, int cap, int tiles_x,
+                              int t_total, float* frags, int* gid,
+                              void* stream) {
+  const int blocks = (cap + kThreads - 1) / kThreads;
+  sorted_fetch_kernel<<<blocks, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(rec), perm, tile, cap, tiles_x,
+      t_total, frags, gid);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,10 @@ binning :func:`bin_splats` (K7 expansion, a stable (tile, depth) sort) and,
 for the render path, exact two-level row-trimmed binning
 (:func:`bin_splats_attrs`:
 K1 row expansion with each row's exact tile interval
-(:func:`expand_row_table`), K2 fragment expansion,
-one stable 1-key tile sort, ``searchsorted`` tile ranges) and the
+(:func:`expand_row_table`), K2 fragment expansion into one attribute
+record a slot, one stable 1-key tile sort, K14's fetch of the records
+into the rasterizer's tile-local stream (:func:`sorted_fetch`),
+``searchsorted`` tile ranges) and the
 tile-scale part of ``pad_schedule``, which keeps the JAX package's
 capacity and overflow contract. The capacity dry pass
 (:func:`count_capacities`) runs the same f32 arithmetic as the binning,
@@ -19,9 +21,13 @@ from typing import NamedTuple
 
 import torch
 
-from .cuda import CudaKernel, I, P, on_cpu
+from ..utils.profiling import count
+from .cuda import CudaKernel, I, P, check, on_cpu
 from .expand import (
     EXPAND_BLOCK,
+    RECORD_ATTRS,
+    RECORD_GID,
+    RECORD_WIDTH,
     ROW_GID,
     ROW_ROW,
     ROW_SPANX,
@@ -37,8 +43,8 @@ from .expand import (
     build_segment_table,
     build_tables,
     check_table,
+    expand_fragment_records,
     expand_fragments,
-    expand_fragments_with_attrs,
     expand_rows_plain,
 )
 
@@ -343,6 +349,62 @@ def expand_row_table(table: SegmentTable, total_rows: torch.Tensor,
     return SegmentTable(ints, attrs), cnt.sum(dtype=torch.int32)
 
 
+def tile_local_stream(attrs_sorted, tile_sorted, tiles_x: int):
+    """The rasterizer's [9, F] stream from the tile-sorted attribute rows
+    (x, y, conic a/b/c, r, g, b, opacity): x/y shifted to the owning
+    tile's pixel origin, then conic, rgb, opacity."""
+    x_local = attrs_sorted[0] - (
+        torch.remainder(tile_sorted, tiles_x) * TILE_SIZE).float()
+    y_local = attrs_sorted[1] - (
+        torch.div(tile_sorted, tiles_x, rounding_mode="floor") * TILE_SIZE
+    ).float()
+    return torch.cat([x_local[None], y_local[None], attrs_sorted[2:9]], dim=0)
+
+
+def sorted_fetch_plain(records, perm, tile_sorted, tiles_x: int,
+                       t_total: int):
+    """Plain version of K14 (the spec the kernel equals bit for bit): the
+    records gathered through ``perm``, :func:`tile_local_stream` of their
+    attributes, and their gid's bits as int32. ``t_total`` is the
+    kernel's: the tile of a padding slot, whose record is zeros."""
+    rec = records[perm]
+    frags = tile_local_stream(rec[:, :RECORD_ATTRS].T, tile_sorted, tiles_x)
+    return frags, rec[:, RECORD_GID].view(torch.int32).contiguous()
+
+
+SORTED_FETCH = CudaKernel(
+    "sorted_fetch", "gs_sorted_fetch", [P, P, P, I, I, I, P, P],
+)
+
+
+def sorted_fetch(records, perm, tile_sorted, tiles_x: int, t_total: int):
+    """K14: the tile-sorted stream from K2's records. ``records``
+    [F, RECORD_WIDTH] f32 (:func:`expand_fragment_records`), ``perm``
+    [F] int64 and ``tile_sorted`` [F] int32 from the stable tile sort.
+    Returns (frags, gid): frags [9, F] f32 is the rasterizer's tile-local
+    stream, its slot j record ``perm[j]``'s attributes with x and y less
+    the origin of tile ``tile_sorted[j]``; gid [F] int32 the records'
+    gids. On the card each call is counted as ``sorted_fetch`` in the
+    open counting session."""
+    f = perm.shape[0]
+    check(records, "records", torch.float32, (f, RECORD_WIDTH))
+    check(perm, "perm", torch.int64, (f,))
+    check(tile_sorted, "tile_sorted", torch.int32, (f,))
+    if on_cpu(records, perm, tile_sorted):
+        return sorted_fetch_plain(records, perm, tile_sorted, tiles_x,
+                                  t_total)
+    dev = records.device
+    frags = torch.empty((RECORD_ATTRS, f), dtype=torch.float32, device=dev)
+    gid = torch.empty((f,), dtype=torch.int32, device=dev)
+    count("sorted_fetch", 1)
+    SORTED_FETCH.launch(
+        records.data_ptr(), perm.data_ptr(), tile_sorted.data_ptr(), f,
+        tiles_x, t_total, frags.data_ptr(), gid.data_ptr(), work=f,
+        device=dev,
+    )
+    return frags, gid
+
+
 def row_capacity(max_rows: int) -> int:
     """Row-stream capacity, rounded up to EXPAND_BLOCK as in the JAX
     package so both flag the same row overflow."""
@@ -358,16 +420,16 @@ def bin_splats_attrs(xy, extent, depth, mask, attr_cols, tiles_x: int,
     ``attr_cols``: [A, N] f32 per-gaussian attributes (x, y, conic a/b/c,
     r, g, b, opacity). Gaussians expand into their bbox tile rows, each
     with its exact tile interval (K1, :func:`expand_row_table`), each row
-    into the fragments of its interval (K2); the stream is emitted
-    depth-major, so one stable sort by tile yields (tile, depth, id)
-    blend order. ``max_rows`` bounds the row stream (default
-    ``max_fragments``).
+    into the fragments of its interval, one attribute record a slot (K2,
+    ``expand_fragment_records``); the stream is emitted depth-major, so
+    one stable sort by tile yields (tile, depth, id) blend order, and K14
+    (:func:`sorted_fetch`) fetches the records in that order.
+    ``max_rows`` bounds the row stream (default ``max_fragments``).
 
-    Returns (stream, attrs_sorted [A + 1, F_cap] f32 with gid as the last
-    row, the per-gaussian SegmentTable).
+    Returns (stream, frags, table): frags [9, F_cap] f32 is the
+    rasterizer's tile-local stream, table the per-gaussian SegmentTable.
     """
     dev = xy.device
-    a = attr_cols.shape[0]
     t_total = tiles_x * tiles_y
     table, total_rows = gaussian_table(
         xy, extent, depth, mask, attr_cols, tiles_x, tiles_y, cutoff_sq,
@@ -375,7 +437,7 @@ def bin_splats_attrs(xy, extent, depth, mask, attr_cols, tiles_x: int,
     )
     r_cap = row_capacity(max_fragments if max_rows is None else max_rows)
     rtab, total = expand_row_table(table, total_rows, r_cap)  # K1
-    tile, _, fetched = expand_fragments_with_attrs(  # K2
+    tile, records = expand_fragment_records(  # K2
         rtab, total, max_fragments, tiles_x, t_total,
     )
     overflow = (total_rows > r_cap) | (total > max_fragments)
@@ -383,21 +445,22 @@ def bin_splats_attrs(xy, extent, depth, mask, attr_cols, tiles_x: int,
     # One stable 1-key sort by tile: the stream is depth-major already.
     # Padding slots carry tile == t_total and sort last.
     tile_sorted, perm = torch.sort(tile, stable=True)
-    attrs_sorted = fetched[:, perm]
+    frags, gauss_id = sorted_fetch(records, perm, tile_sorted, tiles_x,
+                                   t_total)  # K14
 
     tile_ids = torch.arange(t_total, dtype=torch.int32, device=dev)
     tile_start = torch.searchsorted(tile_sorted, tile_ids, out_int32=True)
     tile_end = torch.searchsorted(tile_sorted, tile_ids, right=True,
                                   out_int32=True)
     stream = FragmentStream(
-        gauss_id=attrs_sorted[a].to(torch.int32),
+        gauss_id=gauss_id,
         tile_id=tile_sorted,
         num_fragments=torch.clamp_max(total, max_fragments),
         overflow=overflow,
         tile_start=tile_start,
         tile_end=tile_end,
     )
-    return stream, attrs_sorted, table
+    return stream, frags, table
 
 
 def padded_capacity(f_cap: int, t_total: int, pad_slack: float) -> int:

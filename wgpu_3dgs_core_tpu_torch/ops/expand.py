@@ -11,7 +11,10 @@ slot, the owning row's fields and the slot's rank in the run:
   interval and writes the per-row table K2 reads.
 - K2, :func:`expand_fragments_with_attrs` (replaces
   ``_expand_attr_kernel``): tile rows -> fragments (tile id, gaussian id,
-  attributes), over the per-row table (span == count).
+  attributes), over the per-row table (span == count). The render path
+  runs its record form, :func:`expand_fragment_records`, which writes
+  each slot's attributes and gid as one 48-B record for
+  ``binning.sorted_fetch`` (K14).
 - K7, :func:`expand_fragments` (replaces ``_expand_kernel``): the
   one-level expansion of ``binning.bin_splats``: gaussians -> (tile id,
   gaussian id) over their whole tile bbox, K2 without attributes, over the
@@ -53,6 +56,13 @@ ROW_ROW = 1  # strip-local tile row: y0 + rank
 ROW_SPANX = 2
 ROW_GID = 3
 ROW_INTS = 4
+
+# K2's record form (csrc/expand.cu kRecord*): a [f_cap, RECORD_WIDTH] f32
+# row a slot, the RECORD_ATTRS blend attributes, the gid's int32 bits at
+# RECORD_GID, then zeros (48 B, 16-B aligned).
+RECORD_ATTRS = 9
+RECORD_GID = 9
+RECORD_WIDTH = 12
 
 
 class SegmentTable(NamedTuple):
@@ -274,6 +284,53 @@ def expand_fragments_with_attrs(table: SegmentTable, total: torch.Tensor,
         attrs.data_ptr(), work=f_cap, device=dev,
     )
     return ints[0], ints[1], attrs
+
+
+def expand_fragment_records_plain(table: SegmentTable, total: torch.Tensor,
+                                  f_cap: int, tiles_x: int, t_total: int):
+    """Plain version of K2's record form (the spec the kernel equals bit
+    for bit): :func:`expand_fragments_with_attrs_plain`'s attribute rows
+    transposed, the gid's int32 bits, zeros."""
+    tile, gid, attrs = expand_fragments_with_attrs_plain(
+        table, total, f_cap, tiles_x, t_total)
+    rec = torch.zeros((f_cap, RECORD_WIDTH), dtype=torch.float32,
+                      device=tile.device)
+    rec[:, :RECORD_ATTRS] = attrs[:RECORD_ATTRS].T
+    rec[:, RECORD_GID] = gid.view(torch.float32)
+    return tile, rec
+
+
+EXPAND_RECORDS = CudaKernel(
+    "expand_fragment_records", "gs_expand_fragment_records",
+    [P, P, I, P, I, I, I, P, P],
+)
+
+
+def expand_fragment_records(table: SegmentTable, total: torch.Tensor,
+                            f_cap: int, tiles_x: int, t_total: int):
+    """K2's record form, the render path's K2: the per-row table (9 blend
+    attribute rows) into ``tile`` [f_cap] int32, as
+    :func:`expand_fragments_with_attrs` gives it, and ``records``
+    [f_cap, RECORD_WIDTH] f32, one a slot (RECORD_*). Slots at or past
+    ``total`` get tile = t_total and a zero record."""
+    check_table(table, total)
+    if table.attrs.shape[0] != RECORD_ATTRS:
+        raise ValueError(f"the record form carries {RECORD_ATTRS} attribute "
+                         f"rows, got {table.attrs.shape[0]}")
+    if on_cpu(table.ints, table.attrs, total):
+        return expand_fragment_records_plain(table, total, f_cap, tiles_x,
+                                             t_total)
+    n = table.ints.shape[1]
+    dev = table.ints.device
+    tile = torch.empty((f_cap,), dtype=torch.int32, device=dev)
+    rec = torch.empty((f_cap, RECORD_WIDTH), dtype=torch.float32,
+                      device=dev)
+    EXPAND_RECORDS.launch(
+        table.ints.data_ptr(), table.attrs.data_ptr(), n, total.data_ptr(),
+        f_cap, tiles_x, t_total, tile.data_ptr(), rec.data_ptr(),
+        work=f_cap, device=dev,
+    )
+    return tile, rec
 
 
 # -------------------------------------------------------------------- K7

@@ -4,7 +4,8 @@ The counterpart of ``wgpu_3dgs_core_tpu.render.renderer``. :func:`render`
 is the tensor-in/image-out function; :func:`render_gaussians` takes a
 :class:`GaussiansBuffer` (or packed layout) plus the reference's
 GaussianTransform/ModelTransform knobs. The forward runs the SH colour
-kernel (ops/sh.py), K1 and K2 (ops/expand.py) and K3 (ops/rasterize.py);
+kernel (ops/sh.py), K1, K2 and K14 (ops/expand.py, ops/binning.py) and K3
+(ops/rasterize.py);
 the backward of the binned rasterization (:class:`BinRasterize`, the
 counterpart of the JAX ``custom_vjp``) runs K4 (ops/rasterize.py), a key
 sort, K5 and K6 (ops/segreduce.py), and autograd carries the result
@@ -36,7 +37,6 @@ from ..buffer import (
 from ..layouts import Cov3dFormat, PackedGaussians
 from ..ops.binning import (
     CHUNK,
-    TILE_SIZE,
     bin_splats_attrs,
     count_capacities,
     default_max_fragments,
@@ -184,17 +184,6 @@ def measure_max_rows(means, cov3d_sigma6, opacity, camera: Camera,
     return measure_capacities(means, cov3d_sigma6, opacity, camera, **kw)[1]
 
 
-def tile_local_stream(attrs_sorted, tile_sorted, tiles_x: int):
-    """The rasterizer's [9, F] stream: x/y shifted to the owning tile's
-    pixel origin, then conic, rgb, opacity."""
-    x_local = attrs_sorted[0] - (
-        torch.remainder(tile_sorted, tiles_x) * TILE_SIZE).float()
-    y_local = attrs_sorted[1] - (
-        torch.div(tile_sorted, tiles_x, rounding_mode="floor") * TILE_SIZE
-    ).float()
-    return torch.cat([x_local[None], y_local[None], attrs_sorted[2:9]], dim=0)
-
-
 def attribute_columns(xy, conic, rgb, opacity, mask):
     """The [9, N] attribute columns the binning carries to the rasterizer:
     x, y, conic a/b/c, r, g, b, and the opacity, zero for culled
@@ -237,7 +226,7 @@ class BinRasterize(torch.autograd.Function):
     [T] tile written, 0-d overflow); tiles not written are undefined and
     take no gradient.
 
-    Forward: binning (K1, K2), the padded schedule, K3. Backward: K4's
+    Forward: binning (K1, K2, K14), the padded schedule, K3. Backward: K4's
     per-fragment gradients, one sort of the slots by gaussian, K5's sums
     per gaussian and K6 back to gaussian order. On overflow the whole
     gradient is zero, as in the JAX package: the truncated stream's
@@ -250,13 +239,12 @@ class BinRasterize(torch.autograd.Function):
                 cutoff_sq: float, mode: int, pad_slack: float, max_rows):
         f_pad_cap = padded_capacity(f_cap, tiles_x * tiles_y, pad_slack)
         with named_scope("render.bin"):
-            stream, attrs_sorted, table = bin_splats_attrs(
+            stream, frags, table = bin_splats_attrs(
                 xy, extent, depth, mask, attr_cols, tiles_x, tiles_y, f_cap,
                 max_rows=max_rows, cutoff_sq=cutoff_sq,
                 opacity_cull=mode != 1,
             )
             sched = pad_schedule(stream, f_pad_cap)
-            frags = tile_local_stream(attrs_sorted, stream.tile_id, tiles_x)
             rows = table.ints[TAB_CNT].sum(dtype=torch.int32)
         with named_scope("render.raster"):
             tiles = rasterize_tiles_fwd(frags, stream.tile_start,
@@ -297,7 +285,7 @@ def rasterize_splats(xy, depth, conic, extent, mask, rgb, opacity,
                      pad_slack: float = 1.0, max_rows=None):
     """Projected splats -> ([tiles_x * tiles_y, 4, 256] tiles, overflow).
 
-    Bins (K1, K2), applies the JAX package's padded-schedule capacity
+    Bins (K1, K2, K14), applies the JAX package's padded-schedule capacity
     (``pad_slack`` scales its per-tile padding headroom; truncation is
     folded into ``overflow``), rasterizes (K3), and composites tiles the
     schedule does not draw to the background. Differentiable in ``xy``,

@@ -10,8 +10,9 @@ the one before:
 - ``tables``: ``gaussian_table``, the depth-ordered per-gaussian table;
 - ``rows``: + K1 with the rows' exact tile intervals
   (``expand_row_table``), the per-row table;
-- ``expand``: + K2 (``expand_fragments_with_attrs``);
-- ``sort``: + the stable 1-key tile sort and the attribute gather;
+- ``expand``: + K2's record form (``expand_fragment_records``);
+- ``sort``: + the stable 1-key tile sort and K14 (``sorted_fetch``: the
+  tile-local stream and the gid);
 - ``ranges``: + the ``searchsorted`` tile ranges and ``pad_schedule``.
 
     python -m wgpu_3dgs_core_tpu_torch.tools.bench_bin [bench arguments] \\
@@ -36,8 +37,9 @@ from ..ops.binning import (
     pad_schedule,
     padded_capacity,
     row_capacity,
+    sorted_fetch,
 )
-from ..ops.expand import expand_fragments_with_attrs
+from ..ops.expand import expand_fragment_records
 from .stages import (
     CUTOFF_SQ,
     bench_parser,
@@ -92,20 +94,21 @@ def bin_prefix(proj: dict, tiles_x: int, tiles_y: int, max_fragments: int,
     if upto == "rows":
         return out
     t_total = tiles_x * tiles_y
-    tile, _, fetched = expand_fragments_with_attrs(  # K2
+    tile, records = expand_fragment_records(  # K2
         rtab, total, max_fragments, tiles_x, t_total)
     overflow = (total_rows > r_cap) | (total > max_fragments)
-    out.update(tile=tile, fetched=fetched, overflow=overflow)
+    out.update(tile=tile, records=records, overflow=overflow)
     if upto == "expand":
         return out
     tile_sorted, perm = torch.sort(tile, stable=True)
-    attrs_sorted = fetched[:, perm]
-    out.update(tile_sorted=tile_sorted, attrs_sorted=attrs_sorted)
+    frags, gauss_id = sorted_fetch(records, perm, tile_sorted, tiles_x,
+                                   t_total)  # K14
+    out.update(tile_sorted=tile_sorted, frags=frags)
     if upto == "sort":
         return out
     tile_ids = torch.arange(t_total, dtype=torch.int32, device=xy.device)
     stream = FragmentStream(
-        gauss_id=attrs_sorted[attr_cols.shape[0]].to(torch.int32),
+        gauss_id=gauss_id,
         tile_id=tile_sorted,
         num_fragments=torch.clamp_max(total, max_fragments),
         overflow=overflow,

@@ -69,11 +69,7 @@ from ..ops.variants import (
     staged_slots,
     warp_pixels,
 )
-from ..render.renderer import (
-    measure_capacities,
-    project_and_color,
-    tile_local_stream,
-)
+from ..render.renderer import measure_capacities, project_and_color
 from ..utils.profiling import device_name, kernel_ms
 
 
@@ -91,12 +87,11 @@ def bench_stream(scene, camera, max_fragments: int, max_rows: int,
                                             sh=sh, sh_deg=sh_deg)
         attr_cols = torch.cat([splats.xy.T, splats.conic.T, rgb.T,
                                (op * splats.mask)[None, :]], dim=0)
-        stream, attrs_sorted, _ = bin_splats_attrs(
+        stream, frags, _ = bin_splats_attrs(
             splats.xy, splats.extent, splats.depth, splats.mask, attr_cols,
             tiles_x, tiles_y, f_cap, max_rows=max_rows)
         sched = pad_schedule(stream, padded_capacity(
             f_cap, tiles_x * tiles_y, pad_slack))
-        frags = tile_local_stream(attrs_sorted, stream.tile_id, tiles_x)
     return frags, stream.tile_start, sched.draw_len, tuple(background)
 
 

@@ -9,9 +9,9 @@ forward ones without autograd, as the bench's forward runs):
 - ``project``: ``render/renderer.py::project_splats``;
 - ``color``: + the SH colour and the attribute columns;
 - ``bin``: + ``ops/binning.py::bin_splats_attrs`` (K1, K2, the tile
-  sort, the tile ranges);
+  sort, K14's tile-local stream, the tile ranges);
 - ``sched``: + ``pad_schedule``;
-- ``gather``: + ``tile_local_stream`` and K3;
+- ``gather``: + K3;
 - ``fwd``: ``render`` and the loss, mean(image^2);
 - ``step``: ``bench.py::make_step``, forward + backward w.r.t. (means,
   cov6, colour, opacity, sh).

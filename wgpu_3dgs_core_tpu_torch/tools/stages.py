@@ -43,12 +43,7 @@ from ..ops.binning import (
 )
 from ..ops.cuda import launch_counts, reset_launch_counts
 from ..ops.rasterize import rasterize_tiles_fwd
-from ..render.renderer import (
-    attribute_columns,
-    project_splats,
-    tile_local_stream,
-    view_color,
-)
+from ..render.renderer import attribute_columns, project_splats, view_color
 from ..utils.profiling import (
     PROFILER_STATS,
     device_calls,
@@ -119,10 +114,10 @@ def forward_prefix(params, camera, max_fragments: int, max_rows: int,
     - project: ``project_splats`` (splats, opacity);
     - color: the colour (rgb; with SH the SH kernels on the card) and the
       attribute columns (attr_cols);
-    - bin: ``bin_splats_attrs`` (stream, attrs_sorted, table): K1, K2,
-      the tile sort and the tile ranges;
+    - bin: ``bin_splats_attrs`` (stream, frags, table): K1, K2, the tile
+      sort, K14's tile-local stream and the tile ranges;
     - sched: ``pad_schedule`` (sched);
-    - gather: ``tile_local_stream`` (frags) and K3 (tiles).
+    - gather: K3 (tiles) on the stream.
 
     Returns the pieces made so far, and from bin on "overflow"."""
     if upto not in FORWARD_PREFIX:
@@ -140,10 +135,10 @@ def forward_prefix(params, camera, max_fragments: int, max_rows: int,
     if upto == "color":
         return out
     f_cap = stream_capacity(max_fragments)
-    stream, attrs_sorted, table = bin_splats_attrs(
+    stream, frags, table = bin_splats_attrs(
         splats.xy, splats.extent, splats.depth, splats.mask, attr_cols,
         tiles_x, tiles_y, f_cap, max_rows=max_rows, cutoff_sq=CUTOFF_SQ)
-    out.update(stream=stream, attrs_sorted=attrs_sorted, table=table,
+    out.update(stream=stream, frags=frags, table=table,
                overflow=stream.overflow)
     if upto == "bin":
         return out
@@ -152,10 +147,9 @@ def forward_prefix(params, camera, max_fragments: int, max_rows: int,
     out.update(sched=sched, overflow=stream.overflow | sched.truncated)
     if upto == "sched":
         return out
-    frags = tile_local_stream(attrs_sorted, stream.tile_id, tiles_x)
     tiles = rasterize_tiles_fwd(frags, stream.tile_start, sched.draw_len,
                                 BACKGROUND, CUTOFF_SQ, 0)
-    out.update(frags=frags, tiles=tiles)
+    out.update(tiles=tiles)
     return out
 
 

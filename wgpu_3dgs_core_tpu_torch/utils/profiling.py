@@ -45,6 +45,7 @@ KERNEL_KINDS = (
     ("K2 expand_fragments", "expand_fragments_kernel"),
     ("K1 expand_rows", "expand_rows_kernel"),
     ("K12 sh_color", "sh_color_"),
+    ("K14 sorted_fetch", "sorted_fetch_kernel"),
     ("radix sort", "RadixSort"),
     ("cat/stack", "CatArray"),
     ("index/gather", "index"),
